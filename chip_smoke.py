@@ -14,7 +14,12 @@ script exits non-zero without a result):
    against their plain PyTorch versions on the card, float32 and float64,
    on strictly diagonally dominant indefinite band matrices made by numpy
    from a seed, at the main path's geometry and three others; inertia must
-   agree exactly.
+   agree exactly.  Then the batched kernels K3 (factorize) and K4 (solve)
+   at B=3 lanes per geometry and dtype against their plain versions and,
+   lane by lane, against K1 / K2; lane 1 carries a zero pivot, so the
+   inertia must come out per lane; one case per dtype runs with lane 0
+   inactive, whose band, invL, pivots and right-hand side must come back
+   bit for bit.
 4. ``solve``   — the flagship sparse ACOPF (``opf.build_sparse(nb=600,
    seed=0)``, banded KKT, μ-scaled Richardson) solved on the card in
    float64 (which also warms the card up) and then float32, the main path,
@@ -25,6 +30,23 @@ script exits non-zero without a result):
    more float32 solves, each bit-identical to the first, whose median wall
    gives the iter/s metric (with its spread); one more float32 solve under
    torch.profiler for the device time by kernel.
+5. ``batch``   — the multi-scenario path: ``solve_batch`` of
+   ``opf.build_sparse(nb=600, seed=0, parametric=True)`` in float32 at the
+   16 load scales ``np.linspace(0.92, 1.08, 16)`` in one bulk run, held lane
+   by lane against the port's single solve of each scenario on the card
+   (status, iterations and factorizations exact, objective within 1e-8,
+   backsolves within 15% per lane and 6% in total) and against the JAX
+   package's batch on the CPU
+   (status and iterations exact, objective within 1e-8; its factorization
+   and backsolve counts reported beside the port's, see
+   ``BATCH_REFERENCE``), with the kernels' launch counts over that run (K3
+   and K4 launched, K1 and K2 never); the bulk run repeated, bit for bit;
+   the chunked run
+   (``chunk_size=8, probe_iters=3``) against the bulk run;
+   ``TIMED_BATCHES`` more bulk runs for the lane-iterations and instances
+   per second; K3 / K4 against their plain versions on the batch's last
+   band of every lane (float64), then timed against 16 sequential K1 / K2
+   launches on the same bands; one bulk run under torch.profiler.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -69,9 +91,56 @@ REAL_BAND_RTOL = 1e-6
 # warmed float32 solves timed for the end-to-end iter/s (median and spread)
 TIMED_SOLVES = 7
 
+# The batched path: 16 load scales of the parametric flagship model, and
+# the JAX package's batch of them on the CPU, from
+#   JAX_PLATFORMS=cpu python -c 'import jax.numpy as jnp, madnlp_tpu as M;
+#   from madnlp_tpu.models.instances import opf;
+#   from madnlp_tpu.utils.options import RichardsonOptions as R;
+#   s = M.MadNLPSolver(opf.build_sparse(nb=600, seed=0, parametric=True),
+#       linear_solver=M.LinearSolver.BANDED, dtype="float32",
+#       richardson=R(mu_scaled=True));
+#   st = s.solve_batch(jnp.linspace(0.92, 1.08, 16));
+#   print(st.k, st.factorization_cnt, st.backsolve_cnt,
+#         M.batch_summary(s.prob, st)["objective"].tolist())'
+# (every lane SOLVE_SUCCEEDED, factorization_cnt == iter on every lane).
+# Float32 factorization and backsolve counts are not held against these:
+# where float32 Richardson refinement stalls at its sweep cap, the δ ladder
+# adds a factorization, and whether it stalls depends on the factor's
+# rounding (on the card, the port's single solves of scales 1 and 13 stall
+# once and twice where the JAX package's CPU loop does not).  The port's
+# own single solves on the card are the exact reference for them.
+BATCH_SCALES = np.linspace(0.92, 1.08, 16)
+BATCH_REFERENCE = {
+    "iter": [24, 23, 25, 24, 23, 23, 27, 25, 27, 26, 26, 28, 26, 27, 28, 27],
+    "backsolve_cnt": [61, 69, 61, 59, 59, 53, 60, 63, 67, 66, 59, 65, 66, 74,
+                      65, 64],
+    "objective": [
+        482.97713389105974, 495.5904554411171, 508.4357216103771,
+        521.5263349828456, 534.881472736899, 548.4943838946886,
+        562.3682522971778, 576.5276008714972, 590.996771633352,
+        605.8048071850728, 620.9386671040421, 636.3977767668068,
+        652.2649664902088, 668.507253405474, 685.1492939791464,
+        702.2010771923605],
+}
+# float32 refinement stops a sweep earlier or later with the rounding of
+# the factor and of the f64 reductions: a batch lane's backsolve count is
+# held within 15% of the single solve of its scenario (the spread measured
+# on the card: up to 10% per lane), and the batch's total within 6% of
+# the single solves' total (measured: 0.1%), which shows that no lane
+# counts another lane's sweeps
+BACKSOLVE_RTOL = 0.06
+BACKSOLVE_LANE_RTOL = 0.15
+BATCH_LANES = 3          # lanes of the batched kernel checks
+TIMED_BATCHES = 3
+
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj, default=_plain), flush=True)
+
+
+def _plain(v):
+    """numpy scalars and arrays in a JSON line."""
+    return v.tolist() if hasattr(v, "tolist") else str(v)
 
 
 def _import_port():
@@ -153,6 +222,93 @@ def compare_kernels(torch, struct, band):
     }
 
 
+def compare_batched(torch, struct, bands):
+    """K3 and K4 against their plain batched versions on ``bands (B, ...)``
+    (on the card), and lane by lane against K1 and K2.  Returns the errors
+    over the real block columns and the per-lane inertia."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    B, b, nb = bands.shape[0], struct.b, struct.nb
+    every = np.ones(B, dtype=bool)
+    kf = bk.factorize_batched(
+        struct, bands.clone(), bands.new_zeros((B, struct.nbp, b, b)),
+        bands.new_ones((B, nb * b)), every)
+    pf = plain.banded_factorize_batched(struct, bands)
+    rhs = torch.as_tensor(np.random.default_rng(B * nb * b + 1).standard_normal(
+        (B, struct.N)), dtype=bands.dtype, device=bands.device)
+    kx = bk.solve_batched(struct, kf, rhs, every)
+    px = plain.banded_solve_batched(struct, kf, rhs)
+    single = [bk.factorize(struct, bands[i].clone()) for i in range(B)]
+    sx = torch.stack([bk.solve(struct, f, rhs[i])
+                      for i, f in enumerate(single)])
+    torch.cuda.synchronize()
+    pairs = {"band": (kf.band[:, :nb], pf.band[:, :nb]),
+             "invL": (kf.invL[:, :nb], pf.invL[:, :nb]),
+             "d": (kf.d, pf.d), "solve": (kx, px)}
+    vs_single = {"band": (kf.band[:, :nb], torch.stack([f.band[:nb]
+                                                        for f in single])),
+                 "d": (kf.d, torch.stack([f.d for f in single])),
+                 "solve": (kx, sx)}
+    inertia = plain.banded_inertia(struct, kf)
+    return {
+        "rel": {k: _rel(*v) for k, v in pairs.items()},
+        "abs": {k: _abs(*v) for k, v in pairs.items()},
+        "rel_vs_single": {k: _rel(*v) for k, v in vs_single.items()},
+        "inertia": inertia.tolist(),
+        "inertia_equal": bool(
+            (inertia == plain.banded_inertia(struct, pf)).all()
+            and all(tuple(inertia[i]) == plain.banded_inertia(struct, f)
+                    for i, f in enumerate(single))),
+        "finite": bool(torch.isfinite(kf.band[:, :nb]).all()
+                       and torch.isfinite(kx).all()),
+    }
+
+
+def check_inactive_lane(torch, struct, bands):
+    """K3 and K4 with lane 0 switched off: lane 0's band, invL, pivots and
+    right-hand side must come back bit for bit.  Returns True if they do."""
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    B, b, nb = bands.shape[0], struct.b, struct.nb
+    active = np.ones(B, dtype=bool)
+    active[0] = False
+    work = bands.clone()
+    invL = torch.full((B, struct.nbp, b, b), 7.0, dtype=bands.dtype,
+                      device=bands.device)
+    d = torch.full((B, nb * b), 3.0, dtype=bands.dtype, device=bands.device)
+    bk.banded_factorize_batched_cuda(work, invL, d, active, nb, b, struct.bw)
+    rhs = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (B, struct.nbp * b, 1)), dtype=bands.dtype, device=bands.device)
+    r = rhs.clone()
+    bk.banded_solve_batched_cuda(work, invL, d, r, active)
+    torch.cuda.synchronize()
+    return bool(torch.equal(work[0], bands[0]) and (invL[0] == 7.0).all()
+                and (d[0] == 3.0).all() and torch.equal(r[0], rhs[0]))
+
+
+def _lane_bands(torch, b, bw, nb, dtype_name, lanes, zero_lane=None):
+    """``lanes`` seeded band systems of one geometry (identity ordering),
+    stacked on the card; ``zero_lane`` carries an exactly zero pivot."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.testing import band_system
+
+    # N = nb·b − b/2 leaves a padded tail block
+    N = nb * b - b // 2
+    bands = []
+    for i in range(lanes):
+        rows, cols, vals = band_system(
+            b + 7 * bw + nb + 100 * i, N, b, bw,
+            zero_row=nb * b // 2 if i == zero_lane else None)
+        st = plain.BandStructure(rows, cols, N, block=b, perm=np.arange(N))
+        if (st.b, st.bw, st.nb) != (b, bw, nb):
+            raise AssertionError(f"geometry {(st.b, st.bw, st.nb)} "
+                                 f"!= {(b, bw, nb)}")
+        bands.append(st.assembly(st.map(rows, cols), "cpu")(
+            torch.as_tensor(vals)))
+    return st, torch.stack(bands).to(getattr(torch, dtype_name)).cuda()
+
+
 def phase_kernels(torch):
     from madnlp_tpu_torch.ops import banded as plain
     from madnlp_tpu_torch.testing import band_system
@@ -161,6 +317,35 @@ def phase_kernels(torch):
     worst = {}
     for (b, bw, nb) in GEOMETRIES:
         for dtype_name in ("float32", "float64"):
+            tol = KERNEL_RTOL[dtype_name]
+            st, bands = _lane_bands(torch, b, bw, nb, dtype_name, BATCH_LANES,
+                                    zero_lane=1)
+            res = compare_batched(torch, st, bands)
+            untouched = (check_inactive_lane(torch, st, bands)
+                         if (b, bw, nb) == GEOMETRIES[0] else None)
+            emit({"phase": "kernels", "batched": True, "lanes": BATCH_LANES,
+                  "b": b, "bw": bw, "nb": nb, "N": st.N, "dtype": dtype_name,
+                  "max_rel_err": res["rel"],
+                  "max_rel_err_vs_K1_K2": res["rel_vs_single"], "tol": tol,
+                  "inertia_per_lane": res["inertia"],
+                  "inactive_lane_untouched": untouched})
+            if not res["finite"]:
+                raise AssertionError("non-finite batched kernel output")
+            if max(res["rel"].values()) > tol:
+                raise AssertionError(f"K3/K4 disagree with plain at "
+                                     f"{(b, bw, nb, dtype_name)}")
+            if max(res["rel_vs_single"].values()) > tol:
+                raise AssertionError(f"K3/K4 disagree with K1/K2 at "
+                                     f"{(b, bw, nb, dtype_name)}")
+            if not res["inertia_equal"]:
+                raise AssertionError("batched inertia differs")
+            if res["inertia"][1][1] != 1:
+                raise AssertionError("lane 1's zero pivot was not counted")
+            if untouched is False:
+                raise AssertionError("an inactive lane was modified")
+            if (b, bw, nb) == GEOMETRIES[0] and dtype_name == "float32":
+                worst["K3"] = max(res["abs"][k] for k in ("band", "invL", "d"))
+                worst["K4"] = res["abs"]["solve"]
             variants = [None] + ([nb * b // 2] if (b, bw, nb) == GEOMETRIES[0]
                                  else [])
             for zero_row in variants:
@@ -266,21 +451,25 @@ def _time_events(torch, fn, setup, reps):
     return statistics.median(times)
 
 
-def _bounds(nb, b, bw, itemsize, dtype):
-    """Least times (ms) for K1 and K2 at this geometry: each input read once,
-    each output written once; operations the algorithm needs on the real
-    columns.  K1: LDLᵀ b³/3, unit-lower inverse b³/3, panel 2·bw·b³,
-    trailing bw(bw+1)·b³ per column.  K2 reads only P_j = band[j, 1..bw],
-    invL_j and d (never the diagonal block band[j, 0]) and the right-hand
-    side, and writes the solution; its two sweeps do 4·(bw+1)·b² per column
-    (invL_j and P_j mat-vecs each way) plus the D⁻¹ divisions."""
+def _bounds(nb, b, bw, itemsize, dtype, lanes=1):
+    """Least times (ms) for K1 and K2 at this geometry, and for K3 and K4
+    over ``lanes`` systems (each lane's K1 / K2 work, all lanes active):
+    each input read once, each output written once; operations the
+    algorithm needs on the real columns.  K1: LDLᵀ b³/3, unit-lower inverse
+    b³/3, panel 2·bw·b³, trailing bw(bw+1)·b³ per column.  K2 reads only
+    P_j = band[j, 1..bw], invL_j and d (never the diagonal block band[j, 0])
+    and the right-hand side, and writes the solution; its two sweeps do
+    4·(bw+1)·b² per column (invL_j and P_j mat-vecs each way) plus the D⁻¹
+    divisions."""
     flops1 = nb * b**3 * (2.0 / 3.0 + 2.0 * bw + bw * (bw + 1))
     bytes1 = ((2 * (nb + bw) * (bw + 1) * b * b) + nb * b * b + nb * b) * itemsize
     flops2 = 4.0 * nb * (bw + 1) * b * b + nb * b
     bytes2 = (nb * bw * b * b + nb * b * b + nb * b
               + 2 * (nb + bw) * b) * itemsize
     out = {}
-    for name, fl, by in (("K1", flops1, bytes1), ("K2", flops2, bytes2)):
+    for name, fl, by in (("K1", flops1, bytes1), ("K2", flops2, bytes2),
+                         ("K3", lanes * flops1, lanes * bytes1),
+                         ("K4", lanes * flops2, lanes * bytes2)):
         t_ops, t_bytes = fl / PEAK_FLOPS[dtype], by / PEAK_BYTES
         out[name] = {"flops": fl, "bytes": by,
                      "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -336,6 +525,7 @@ def phase_solve(torch, port):
             raise AssertionError("a timed float32 solve differs from the first")
         walls.append(w)
     med = statistics.median(walls)
+    results["iter_per_s_median"] = first.iter / med
     emit({"phase": "solve", "dtype": "float32", "timed_solves": TIMED_SOLVES,
           "wall_s": walls, "median_wall_s": med,
           "iter_per_s_median": first.iter / med,
@@ -389,13 +579,18 @@ def phase_solve(torch, port):
     return results
 
 
-def _profile(torch, port):
-    """One more float32 solve under torch.profiler: the device time by
-    kernel name and the share of the wall during which the card was busy."""
+def _profile(torch, port, run=None):
+    """One more float32 solve (or ``run()``, which returns its iteration
+    count and wall) under torch.profiler: the device time by kernel name
+    and the share of the wall during which the card was busy."""
     from torch.profiler import ProfilerActivity, profile
 
+    if run is None:
+        def run():
+            stats, wall, _ = _solve(torch, port, "float32")
+            return stats.iter, wall
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats, wall, _ = _solve(torch, port, "float32")
+        iters, wall = run()
     by_name, launches = {}, 0
     for ev in prof.events():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -408,9 +603,242 @@ def _profile(torch, port):
         by_name[name] = by_name.get(name, 0.0) + us / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"iter": stats.iter, "wall_ms": 1e3 * wall,
+    return {"iter": iters, "wall_ms": 1e3 * wall,
             "device_busy_ms": busy, "device_busy_share": busy / (1e3 * wall),
             "device_launches": launches, "top_ms": dict(top)}
+
+
+# -- 5. the multi-scenario batch ----------------------------------------------
+
+
+def _solve_batch(torch, port, keep=None, **kwargs):
+    """One ``solve_batch`` of the 16 scenarios on the card (model and
+    symbolic set-up excluded from the wall).  ``keep`` collects the last
+    band each lane factored.  Returns (summary, wall, kernel launches)."""
+    from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    solver = port.MadNLPSolver(
+        opf.build_sparse(nb=600, seed=0, parametric=True), device="cuda",
+        linear_solver=port.LinearSolver.BANDED, dtype="float32",
+        richardson=port.RichardsonOptions(mu_scaled=True),
+        print_level=port.PrintLevel.ERROR)
+    factorize_batched = bk.factorize_batched
+    if keep is not None:
+        def keeping(struct, band, invL, d, active):
+            on = torch.as_tensor(active, device=band.device)
+            on = on.reshape((-1,) + (1,) * (band.ndim - 1))
+            keep["struct"] = struct
+            keep["bands"] = (band.clone() if "bands" not in keep
+                             else torch.where(on, band, keep["bands"]))
+            return factorize_batched(struct, band, invL, d, active)
+        bk.factorize_batched = keeping
+    torch.cuda.synchronize()
+    bk.reset_counts()
+    t = time.perf_counter()
+    try:
+        st = solver.solve_batch(BATCH_SCALES, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        bk.factorize_batched = factorize_batched
+    wall = time.perf_counter() - t
+    return port.batch_summary(solver.prob, st), wall, bk.counts()
+
+
+def _same_batch(a, b):
+    return (np.array_equal(a["x"], b["x"])
+            and np.array_equal(a["objective"], b["objective"])
+            and all(np.array_equal(a["counters"][k], b["counters"][k])
+                    for k in a["counters"]))
+
+
+def _single_lanes(torch, port):
+    """The port's single float32 solve of each scenario on the card (K1 and
+    K2): the exact reference for the batch's per-lane counters."""
+    from madnlp_tpu_torch.models.instances import opf
+
+    model = opf.build_sparse(nb=600, seed=0, parametric=True)
+    out = []
+    for scale in BATCH_SCALES:
+        s = port.madnlp(model, params=scale, device="cuda",
+                        linear_solver=port.LinearSolver.BANDED,
+                        dtype="float32",
+                        richardson=port.RichardsonOptions(mu_scaled=True),
+                        print_level=port.PrintLevel.ERROR)
+        out.append((int(s.status), s.iter, s.counters["factorization_cnt"],
+                    s.counters["backsolve_cnt"], s.objective))
+    torch.cuda.synchronize()
+    return [np.array(v) for v in zip(*out)]
+
+
+def _check_batch(port, summ, counts, single):
+    ref = BATCH_REFERENCE
+    c = summ["counters"]
+    status, iters, facts, backs, objs = single
+    ok = int(port.Status.SOLVE_SUCCEEDED)
+    if not (summ["status"] == ok).all() or not (status == ok).all():
+        raise AssertionError(f"batch: statuses {summ['status'].tolist()}, "
+                             f"single {status.tolist()}")
+    if summ["iter"].tolist() != ref["iter"] or summ["iter"].tolist() != \
+            iters.tolist():
+        raise AssertionError(f"batch: iterations {summ['iter'].tolist()}, "
+                             f"single {iters.tolist()}, JAX {ref['iter']}")
+    if c["factorization_cnt"].tolist() != facts.tolist():
+        raise AssertionError("batch: factorizations "
+                             f"{c['factorization_cnt'].tolist()}, single "
+                             f"{facts.tolist()}")
+    rel = np.abs(summ["objective"] - ref["objective"]) / np.abs(ref["objective"])
+    rel_single = np.abs(summ["objective"] - objs) / np.abs(objs)
+    if max(rel.max(), rel_single.max()) > OBJ_RTOL:
+        raise AssertionError(f"batch: objective off by {rel.max()!r} (JAX), "
+                             f"{rel_single.max()!r} (single)")
+    bad_lane = (np.abs(c["backsolve_cnt"] - backs)
+                > BACKSOLVE_LANE_RTOL * backs).any()
+    bad_total = (abs(int(c["backsolve_cnt"].sum()) - int(backs.sum()))
+                 > BACKSOLVE_RTOL * backs.sum())
+    if bad_lane or bad_total:
+        raise AssertionError(f"batch: backsolves {c['backsolve_cnt'].tolist()}"
+                             f", single {backs.tolist()}")
+    if not np.isfinite(summ["x"]).all():
+        raise AssertionError("batch: non-finite solution")
+    if (counts["banded_factorize_batched_cuda"] == 0
+            or counts["banded_solve_batched_cuda"] == 0):
+        raise AssertionError(f"batch: K3/K4 not launched: {counts}")
+    if counts["banded_factorize_cuda"] or counts["banded_solve_cuda"]:
+        raise AssertionError(f"batch: the single kernels ran: {counts}")
+    return float(rel.max()), float(rel_single.max())
+
+
+def phase_batch(torch, port, single_iter_per_s):
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    single = _single_lanes(torch, port)
+    # the batched main path, counts from 0 just before it
+    summ, wall, counts = _solve_batch(torch, port)
+    rel, rel_single = _check_batch(port, summ, counts, single)
+    c = summ["counters"]
+    emit({"phase": "batch", "lanes": len(BATCH_SCALES), "dtype": "float32",
+          "status": summ["status"].tolist(), "iter": summ["iter"].tolist(),
+          "factorization_cnt": c["factorization_cnt"].tolist(),
+          "factorization_cnt_single": single[2].tolist(),
+          "factorization_cnt_jax": BATCH_REFERENCE["iter"],
+          "backsolve_cnt": c["backsolve_cnt"].tolist(),
+          "backsolve_cnt_single": single[3].tolist(),
+          "backsolve_cnt_jax": BATCH_REFERENCE["backsolve_cnt"],
+          "objective": summ["objective"].tolist(),
+          "objective_max_rel_err_jax": rel,
+          "objective_max_rel_err_single": rel_single,
+          "launches": counts, "wall_s": wall})
+    first = summ
+
+    kept = {}
+    again, wall2, _ = _solve_batch(torch, port, keep=kept)
+    same = _same_batch(again, first)
+    emit({"phase": "batch", "repeat": True, "bit_identical": same,
+          "wall_s": wall2})
+    if not same:
+        raise AssertionError("the repeated batch differs")
+
+    chunked, wall3, _ = _solve_batch(torch, port, chunk_size=8, probe_iters=3)
+    crel = (np.abs(chunked["objective"] - first["objective"])
+            / np.abs(first["objective"]))
+    match = bool(np.array_equal(chunked["status"], first["status"])
+                 and np.array_equal(chunked["iter"], first["iter"])
+                 and np.array_equal(chunked["counters"]["factorization_cnt"],
+                                    c["factorization_cnt"])
+                 and crel.max() <= OBJ_RTOL)
+    emit({"phase": "batch", "chunk_size": 8, "probe_iters": 3,
+          "matches_bulk": match, "iter": chunked["iter"].tolist(),
+          "objective_max_rel_err_vs_bulk": float(crel.max()),
+          "wall_s": wall3})
+    if not match:
+        raise AssertionError("the chunked batch differs from the bulk run")
+
+    walls = []
+    for _ in range(TIMED_BATCHES):
+        again, w, _ = _solve_batch(torch, port)
+        if not _same_batch(again, first):
+            raise AssertionError("a timed batch differs from the first")
+        walls.append(w)
+    med = statistics.median(walls)
+    lane_iters = int(first["iter"].sum())
+    emit({"phase": "batch", "timed_batches": TIMED_BATCHES, "wall_s": walls,
+          "median_wall_s": med, "lane_iterations": lane_iters,
+          "lane_iter_per_s": lane_iters / med,
+          "instances_per_s": len(BATCH_SCALES) / med,
+          "single_iter_per_s_median": single_iter_per_s,
+          "lane_iter_per_s_over_single": lane_iters / med / single_iter_per_s})
+
+    # K3 / K4 on the last band of every lane: agreement in float64, then
+    # timed in float32 against 16 sequential K1 / K2 launches
+    st, bands = kept["struct"], kept["bands"]
+    B, b, nb, bw = bands.shape[0], st.b, st.nb, st.bw
+    real64 = compare_batched(torch, st, bands.double())
+    emit({"phase": "batch_bands", "lanes": B, "b": b, "bw": bw, "nb": nb,
+          "N": st.N, "float64_max_rel_err": real64["rel"],
+          "float64_max_rel_err_vs_K1_K2": real64["rel_vs_single"],
+          "float64_tol": REAL_BAND_RTOL,
+          "inertia_equal": real64["inertia_equal"]})
+    if max(max(real64["rel"].values()),
+           max(real64["rel_vs_single"].values())) > REAL_BAND_RTOL:
+        raise AssertionError("K3/K4 disagree on the batch's bands")
+    if not real64["inertia_equal"]:
+        raise AssertionError("batched inertia differs on the batch's bands")
+
+    every = np.ones(B, dtype=bool)
+    work = torch.empty_like(bands)
+    invL = bands.new_zeros((B, st.nbp, b, b))
+    d = bands.new_ones((B, nb * b))
+    f = bk.factorize_batched(st, bands.clone(), bands.new_zeros(invL.shape),
+                             bands.new_ones(d.shape), every)
+    rhs = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (B, st.nbp * b, 1)), dtype=bands.dtype, device=bands.device)
+    rwork = torch.empty_like(rhs)
+
+    def k1_each():
+        for i in range(B):
+            bk.banded_factorize_cuda(work[i], invL[i], d[i], nb, b, bw)
+
+    def k2_each():
+        for i in range(B):
+            bk.banded_solve_cuda(f.band[i], f.invL[i], f.d[i], rwork[i])
+
+    times = {
+        "K3": _time_events(
+            torch, lambda: bk.banded_factorize_batched_cuda(
+                work, invL, d, every, nb, b, bw),
+            lambda: work.copy_(bands), 10),
+        "K1_x16": _time_events(torch, k1_each, lambda: work.copy_(bands), 5),
+        "K3_plain": _time_events(
+            torch, lambda: plain.factorize_columns_batched(
+                work, invL, d, every, nb, b, bw),
+            lambda: work.copy_(bands), 1),
+        "K4": _time_events(
+            torch, lambda: bk.banded_solve_batched_cuda(
+                f.band, f.invL, f.d, rwork, every),
+            lambda: rwork.copy_(rhs), 50),
+        "K2_x16": _time_events(torch, k2_each, lambda: rwork.copy_(rhs), 20),
+        "K4_plain": _time_events(
+            torch, lambda: plain.solve_padded_batched(
+                f.band, f.invL, f.d, rwork, every),
+            lambda: rwork.copy_(rhs), 3),
+    }
+    bounds = _bounds(nb, b, bw, bands.element_size(), "float32", lanes=B)
+    emit({"phase": "batch_timing", "dtype": "float32", "lanes": B, "b": b,
+          "bw": bw, "nb": nb, "ms": times,
+          "K3_over_K1": times["K3"] / (times["K1_x16"] / B),
+          "K4_over_K2": times["K4"] / (times["K2_x16"] / B),
+          "bounds": {k: bounds[k] for k in ("K3", "K4")}})
+
+    def profiled():
+        s, w, _ = _solve_batch(torch, port)
+        return int(s["iter"].max()), w
+    emit(dict(phase="batch_profile", dtype="float32", lanes=B,
+              **_profile(torch, port, profiled)))
+    return {"launches": (counts["banded_factorize_batched_cuda"],
+                         counts["banded_solve_batched_cuda"]),
+            "times": times, "bounds": bounds}
 
 
 # -- main ----------------------------------------------------------------------
@@ -427,21 +855,23 @@ def main():
     phase_build()
     worst = phase_kernels(torch)
     solve = phase_solve(torch, port)
+    batch = phase_batch(torch, port, solve["iter_per_s_median"])
 
-    times, bounds, launches = solve["times"], solve["bounds"], solve["launches"]
     kernels = []
-    for i, (name, key, errs, line) in enumerate((
-            ("banded_factorize_cuda", "K1", ("band", "invL", "d"), 121),
-            ("banded_solve_cuda", "K2", ("solve",), 439))):
+    for path, i, name, key, errs, line in (
+            (solve, 0, "banded_factorize_cuda", "K1", ("band", "invL", "d"), 121),
+            (solve, 1, "banded_solve_cuda", "K2", ("solve",), 439),
+            (batch, 0, "banded_factorize_batched_cuda", "K3", ("K3",), 345),
+            (batch, 1, "banded_solve_batched_cuda", "K4", ("K4",), 620)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "madnlp_tpu_torch/csrc/banded_ldlt.cu",
             "replaces": f"madnlp_tpu/ops/pallas_banded_stream.py:{line}",
-            "launches": launches[i],
+            "launches": path["launches"][i],
             "max_abs_err": max(worst[e] for e in errs),
-            "ms": times[key], "plain_ms": times[key + "_plain"],
-            "bound_ms": bounds[key]["bound_ms"],
-            "bound_by": bounds[key]["bound_by"],
+            "ms": path["times"][key], "plain_ms": path["times"][key + "_plain"],
+            "bound_ms": path["bounds"][key]["bound_ms"],
+            "bound_by": path["bounds"][key]["bound_by"],
             "library_ms": None,
         })
     print(smi, flush=True)

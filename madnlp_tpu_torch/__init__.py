@@ -27,11 +27,16 @@ from .utils.options import (  # noqa: E402
     RichardsonOptions,
 )
 from .utils.status import Status, is_success  # noqa: E402
-from .ipm.solver import ExecutionStats, MadNLPSolver, madnlp  # noqa: E402
+from .ipm.solver import (  # noqa: E402
+    ExecutionStats,
+    MadNLPSolver,
+    batch_summary,
+    madnlp,
+)
 
 __all__ = [
     "SparseNLPModel", "MadNLPOptions", "KKTSystem", "LinearSolver",
     "InertiaCorrection", "FixedVariableTreatment", "EqualityTreatment",
     "PrintLevel", "RichardsonOptions", "Status", "is_success",
-    "MadNLPSolver", "ExecutionStats", "madnlp",
+    "MadNLPSolver", "ExecutionStats", "madnlp", "batch_summary",
 ]

@@ -1,12 +1,17 @@
 // Block-banded unpivoted LDLᵀ factorize (K1) and solve (K2) for Hopper
-// (sm_90a), float and double, behind a plain C interface loaded with ctypes
-// by madnlp_tpu_torch/ops/banded_kernels.py.
+// (sm_90a), and their batched forms (K3, K4) over B same-geometry systems,
+// float and double, behind a plain C interface loaded with ctypes by
+// madnlp_tpu_torch/ops/banded_kernels.py.
 //
 // Replaces the TPU kernels
 //   K1  madnlp_tpu/ops/pallas_banded_stream.py:_stream_factorize_kernel
 //       (with madnlp_tpu/ops/pallas_banded.py:_ldlt_with_inverse for each
-//       diagonal block)
-//   K2  madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_kernel
+//       diagonal block), called by _stream_factorize_call
+//   K2  madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_kernel,
+//       called by _stream_solve_call
+//   K3  madnlp_tpu/ops/pallas_banded_stream.py:_stream_factorize_call_batched
+//       (K1's body on a sequential batch grid, what jax.vmap maps K1 onto)
+//   K4  madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_call_batched
 //
 // Band layout (row-major): band[(j*(bw+1) + k)*b*b + r*b + c] is entry (r, c)
 // of block (j+k, j) of the permuted matrix; band[j, 0] is lower-stored.
@@ -44,6 +49,24 @@
 //   inertia that drives the IPM's regularization ladder must match exactly.
 //   Overhang columns c >= nb are updated but never factored.
 //   Kernels allocate nothing; every entry point returns cudaGetLastError().
+//
+// The batched kernels K3 and K4 run the same __global__ bodies with a lane
+// index: every kernel takes the lane strides of its arrays and an optional
+// active mask (int32 per lane; null for K1/K2, whose launches have one lane
+// and zero strides).  A CTA of an inactive lane returns at once, so its
+// band, invL, d and right-hand side stay exactly as they were: that is how
+// the solver's masked δ-regularization ladder and its finished lanes cost
+// nothing and never overwrite a factor still in use.
+//   K3 is bound by operations: B times K1's, 1.969 GFLOP per lane at the
+//   flagship geometry.  Per block column it issues K1's four launches with
+//   a lane dimension in every grid: the diagonal step as one CTA per lane
+//   (B CTAs side by side on B SMs, where K1 leaves 131 SMs idle), the panel
+//   and trailing GEMM grids with the lane folded into blockIdx.z, the D⁻¹
+//   scaling with the lane in blockIdx.y.  Launches per factorization stay
+//   4·nb whatever B is.
+//   K4 is bound by bytes: B times K2's, 8.69 MB per lane at the flagship
+//   geometry.  Its grid is (B,): one CTA per lane runs both sweeps of its
+//   lane, the lanes side by side on separate SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,12 +93,28 @@ size_t diag_smem_bytes(int b) {
   return elems * sizeof(T);
 }
 
+// Lane of this CTA (grid dimension given by the caller); false if the
+// active mask switches the lane off.
+__device__ __forceinline__ bool lane_on(const int* __restrict__ active,
+                                        int lane) {
+  return active == nullptr || active[lane] != 0;
+}
+
 // (a) LDLᵀ + L⁻¹ of one lower-stored b×b block A (ld = b), in place:
 // A <- strict-lower L + diag(d) (upper zero), R <- L⁻¹, dout <- d.
+// One CTA per lane (blockIdx.x); lane strides sA, sR, sd.
+// One CTA per SM at most (its shared memory sees to that): the bound lets
+// ptxas use the registers a single resident CTA leaves free.
 template <typename T>
-__global__ void __launch_bounds__(DIAG_THREADS)
+__global__ void __launch_bounds__(DIAG_THREADS, 1)
 diag_ldlt_kernel(T* __restrict__ A, T* __restrict__ R, T* __restrict__ dout,
-                 int b) {
+                 int b, size_t sA, size_t sR, size_t sd,
+                 const int* __restrict__ active) {
+  const int lane_idx = blockIdx.x;
+  if (!lane_on(active, lane_idx)) return;
+  A += lane_idx * sA;
+  R += lane_idx * sR;
+  dout += lane_idx * sd;
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int P = PANEL;
@@ -250,31 +289,52 @@ __device__ __forceinline__ void gemm_nt_tile(
   }
 }
 
-// (b) X = P · invL_jᵀ with P = band[j, 1..bw] as a (bw·b)×b matrix
+// Lane strides of the factorization's arrays, in elements.
+struct FactorStrides {
+  size_t band, invL, d, x;
+};
+
+// (b) X = P · invL_jᵀ with P = band[j, 1..bw] as a (bw·b)×b matrix;
+// blockIdx.z is the lane
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
 panel_kernel(const T* __restrict__ P, const T* __restrict__ iL,
-             T* __restrict__ X, int rows, int b) {
-  gemm_nt_tile(P, b, iL, b, X, b, rows, b, b, false,
+             T* __restrict__ X, int rows, int b, FactorStrides s,
+             const int* __restrict__ active) {
+  const int lane_idx = blockIdx.z;
+  if (!lane_on(active, lane_idx)) return;
+  gemm_nt_tile(P + lane_idx * s.band, b, iL + lane_idx * s.invL, b,
+               X + lane_idx * s.x, b, rows, b, b, false,
                blockIdx.y * BM, blockIdx.x * BN);
 }
 
-// (c) Lcol = X / d, written over P
+// (c) Lcol = X / d, written over P; blockIdx.y is the lane
 template <typename T>
 __global__ void scale_kernel(const T* __restrict__ X, const T* __restrict__ dj,
-                             T* __restrict__ P, int rows, int b) {
+                             T* __restrict__ P, int rows, int b,
+                             FactorStrides s, const int* __restrict__ active) {
+  const int lane_idx = blockIdx.y;
+  if (!lane_on(active, lane_idx)) return;
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (size_t)rows * b) return;
+  X += lane_idx * s.x;
+  dj += lane_idx * s.d;
+  P += lane_idx * s.band;
   P[e] = X[e] / pivot_div(dj[e % b]);
 }
 
 // (d) band[j+l, m] -= Lcol_{l+m} · X_lᵀ for l = 1..bw, m = 0..bw-l;
-// blockIdx.z enumerates the (l, m) pairs
+// blockIdx.z enumerates the (lane, (l, m)) pairs, lane-major
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
 trailing_kernel(T* __restrict__ band, const T* __restrict__ X, int j, int b,
-                int bw) {
-  int z = blockIdx.z, l = 1;
+                int bw, FactorStrides s, const int* __restrict__ active) {
+  const int npairs = bw * (bw + 1) / 2;
+  const int lane_idx = blockIdx.z / npairs;
+  if (!lane_on(active, lane_idx)) return;
+  band += lane_idx * s.band;
+  X += lane_idx * s.x;
+  int z = blockIdx.z % npairs, l = 1;
   while (z > bw - l) {
     z -= bw - l + 1;
     ++l;
@@ -288,9 +348,11 @@ trailing_kernel(T* __restrict__ band, const T* __restrict__ X, int j, int b,
                blockIdx.y * BM, blockIdx.x * BN);
 }
 
+// K1 (lanes = 1, active = null) and K3: the host loops over block columns
+// and launches, per column, the four steps for every lane at once.
 template <typename T>
-int factorize(T* band, T* invL, T* d, T* xbuf, int nb, int b, int bw,
-              cudaStream_t stream) {
+int factorize(T* band, T* invL, T* d, T* xbuf, const int* active, int lanes,
+              FactorStrides s, int nb, int b, int bw, cudaStream_t stream) {
   const size_t smem = diag_smem_bytes<T>(b);
   cudaError_t err = cudaFuncSetAttribute(
       diag_ldlt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -298,35 +360,45 @@ int factorize(T* band, T* invL, T* d, T* xbuf, int nb, int b, int bw,
   if (err != cudaSuccess) return (int)err;
   const size_t bb = (size_t)b * b;
   const int rows = bw * b;
-  const dim3 panel_grid((b + BN - 1) / BN, (rows + BM - 1) / BM);
+  const dim3 panel_grid((b + BN - 1) / BN, (rows + BM - 1) / BM, lanes);
   const dim3 trail_grid((b + BN - 1) / BN, (b + BM - 1) / BM,
-                        bw * (bw + 1) / 2);
-  const int scale_blocks = (int)(((size_t)rows * b + 255) / 256);
+                        lanes * (bw * (bw + 1) / 2));
+  const dim3 scale_grid((unsigned)(((size_t)rows * b + 255) / 256), lanes);
   for (int j = 0; j < nb; ++j) {
     T* col = band + (size_t)j * (bw + 1) * bb;
-    diag_ldlt_kernel<T><<<1, DIAG_THREADS, smem, stream>>>(
-        col, invL + (size_t)j * bb, d + (size_t)j * b, b);
+    diag_ldlt_kernel<T><<<lanes, DIAG_THREADS, smem, stream>>>(
+        col, invL + (size_t)j * bb, d + (size_t)j * b, b, s.band, s.invL,
+        s.d, active);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     panel_kernel<T><<<panel_grid, GEMM_THREADS, 0, stream>>>(
-        col + bb, invL + (size_t)j * bb, xbuf, rows, b);
+        col + bb, invL + (size_t)j * bb, xbuf, rows, b, s, active);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    scale_kernel<T><<<scale_blocks, 256, 0, stream>>>(
-        xbuf, d + (size_t)j * b, col + bb, rows, b);
+    scale_kernel<T><<<scale_grid, 256, 0, stream>>>(
+        xbuf, d + (size_t)j * b, col + bb, rows, b, s, active);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     trailing_kernel<T><<<trail_grid, GEMM_THREADS, 0, stream>>>(
-        band, xbuf, j, b, bw);
+        band, xbuf, j, b, bw, s, active);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
-// K2: both sweeps in one CTA, in place on rhs ((nb+bw)·b × k, row-major).
+// K2 (grid 1) and K4 (grid B, one CTA per lane): both sweeps in one CTA,
+// in place on the lane's rhs ((nb+bw)·b × k, row-major).
 // Shared memory: rs (b·k), z (b·k), part (SOLVE_THREADS).
+// One CTA per SM, so that K4's lanes never share an SM's registers.
 template <typename T>
-__global__ void __launch_bounds__(SOLVE_THREADS)
+__global__ void __launch_bounds__(SOLVE_THREADS, 1)
 solve_kernel(const T* __restrict__ band, const T* __restrict__ invL,
              const T* __restrict__ d, T* __restrict__ rhs, int nb, int b,
-             int bw, int k) {
+             int bw, int k, size_t s_band, size_t s_invL, size_t s_d,
+             size_t s_rhs, const int* __restrict__ active) {
+  const int lane_idx = blockIdx.x;
+  if (!lane_on(active, lane_idx)) return;
+  band += lane_idx * s_band;
+  invL += lane_idx * s_invL;
+  d += lane_idx * s_d;
+  rhs += lane_idx * s_rhs;
   extern __shared__ unsigned char smem_raw[];
   T* rs = reinterpret_cast<T*>(smem_raw);
   T* z = rs + b * k;
@@ -404,44 +476,96 @@ solve_kernel(const T* __restrict__ band, const T* __restrict__ invL,
 }
 
 template <typename T>
-int solve(const T* band, const T* invL, const T* d, T* rhs, int nb, int b,
-          int bw, int k, cudaStream_t stream) {
+int solve(const T* band, const T* invL, const T* d, T* rhs, const int* active,
+          int lanes, int nb, int b, int bw, int k, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)b * k + SOLVE_THREADS) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  solve_kernel<T><<<1, SOLVE_THREADS, smem, stream>>>(band, invL, d, rhs, nb,
-                                                      b, bw, k);
+  const size_t nbp = (size_t)nb + bw;
+  solve_kernel<T><<<lanes, SOLVE_THREADS, smem, stream>>>(
+      band, invL, d, rhs, nb, b, bw, k, nbp * (bw + 1) * b * b,
+      nbp * b * b, (size_t)nb * b, nbp * b * k, active);
   return (int)cudaGetLastError();
+}
+
+// Lane strides of K3's arrays: band (B, nbp, bw+1, b, b), invL (B, nbp, b,
+// b), d (B, nb·b), xbuf (B, bw·b, b).
+FactorStrides batched_strides(int nb, int b, int bw) {
+  const size_t nbp = (size_t)nb + bw, bb = (size_t)b * b;
+  return FactorStrides{nbp * (bw + 1) * bb, nbp * bb, (size_t)nb * b,
+                       (size_t)bw * bb};
 }
 
 }  // namespace
 
 extern "C" {
 
+// K1
 int banded_factorize_f32(void* band, void* invL, void* d, void* xbuf, int nb,
                          int b, int bw, void* stream) {
   return factorize<float>((float*)band, (float*)invL, (float*)d, (float*)xbuf,
-                          nb, b, bw, (cudaStream_t)stream);
+                          nullptr, 1, FactorStrides{0, 0, 0, 0}, nb, b, bw,
+                          (cudaStream_t)stream);
 }
 
 int banded_factorize_f64(void* band, void* invL, void* d, void* xbuf, int nb,
                          int b, int bw, void* stream) {
   return factorize<double>((double*)band, (double*)invL, (double*)d,
-                           (double*)xbuf, nb, b, bw, (cudaStream_t)stream);
+                           (double*)xbuf, nullptr, 1,
+                           FactorStrides{0, 0, 0, 0}, nb, b, bw,
+                           (cudaStream_t)stream);
 }
 
+// K2
 int banded_solve_f32(void* band, void* invL, void* d, void* rhs, int nb, int b,
                      int bw, int k, void* stream) {
   return solve<float>((const float*)band, (const float*)invL, (const float*)d,
-                      (float*)rhs, nb, b, bw, k, (cudaStream_t)stream);
+                      (float*)rhs, nullptr, 1, nb, b, bw, k,
+                      (cudaStream_t)stream);
 }
 
 int banded_solve_f64(void* band, void* invL, void* d, void* rhs, int nb, int b,
                      int bw, int k, void* stream) {
   return solve<double>((const double*)band, (const double*)invL,
-                       (const double*)d, (double*)rhs, nb, b, bw, k,
-                       (cudaStream_t)stream);
+                       (const double*)d, (double*)rhs, nullptr, 1, nb, b, bw,
+                       k, (cudaStream_t)stream);
+}
+
+// K3
+int banded_factorize_batched_f32(void* band, void* invL, void* d, void* xbuf,
+                                 void* active, int lanes, int nb, int b,
+                                 int bw, void* stream) {
+  return factorize<float>((float*)band, (float*)invL, (float*)d, (float*)xbuf,
+                          (const int*)active, lanes,
+                          batched_strides(nb, b, bw), nb, b, bw,
+                          (cudaStream_t)stream);
+}
+
+int banded_factorize_batched_f64(void* band, void* invL, void* d, void* xbuf,
+                                 void* active, int lanes, int nb, int b,
+                                 int bw, void* stream) {
+  return factorize<double>((double*)band, (double*)invL, (double*)d,
+                           (double*)xbuf, (const int*)active, lanes,
+                           batched_strides(nb, b, bw), nb, b, bw,
+                           (cudaStream_t)stream);
+}
+
+// K4
+int banded_solve_batched_f32(void* band, void* invL, void* d, void* rhs,
+                             void* active, int lanes, int nb, int b, int bw,
+                             int k, void* stream) {
+  return solve<float>((const float*)band, (const float*)invL, (const float*)d,
+                      (float*)rhs, (const int*)active, lanes, nb, b, bw, k,
+                      (cudaStream_t)stream);
+}
+
+int banded_solve_batched_f64(void* band, void* invL, void* d, void* rhs,
+                             void* active, int lanes, int nb, int b, int bw,
+                             int k, void* stream) {
+  return solve<double>((const double*)band, (const double*)invL,
+                       (const double*)d, (double*)rhs, (const int*)active,
+                       lanes, nb, b, bw, k, (cudaStream_t)stream);
 }
 
 }  // extern "C"

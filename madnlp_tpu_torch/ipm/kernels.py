@@ -2,10 +2,15 @@
 above ``get_theta_R``; the restoration kernels come with restoration).
 
 Vector kernels are masked, fully vectorised torch functions returning
-tensors (reductions as 0-d tensors, read on the host by the caller).
-Scalar formulas (barrier schedule, line-search predicates) take and return
-host floats: the port's iteration runs its control flow on the host, so
-these never touch the device.  The filter is a small host-side table.
+tensors, read on the host by the caller.  They broadcast over a leading
+lane axis: vectors are ``(n,)`` for one solve or ``(B, n)`` for a batch,
+reductions run over the last axis (0-d or ``(B,)`` results), and a
+per-lane scalar argument (μ, τ, the objective) is a host float or a
+``(B,)`` tensor.  Scalar formulas (barrier schedule, line-search
+predicates) take and return host floats: the port's iteration runs its
+control flow on the host, so these never touch the device; a batch calls
+them lane by lane.  The filter is a small host-side table, ``(cap,)`` or
+``(B, cap)``.
 
 Conventions (as in the JAX package):
 
@@ -25,8 +30,14 @@ import torch
 INF = math.inf
 
 
-def _scalar(x):
-    return torch.as_tensor(x, dtype=torch.float64)
+def as_col(s):
+    """A per-lane scalar against the vectors it scales: a ``(B,)`` tensor
+    becomes ``(B, 1)``; a host float stays as it is."""
+    return s[..., None] if torch.is_tensor(s) else s
+
+
+def _empty_reduce(v, init):
+    return torch.full(v.shape[:-1], init, dtype=torch.float64, device=v.device)
 
 
 def slacks(x, xl, xu, lb_mask, ub_mask):
@@ -37,23 +48,23 @@ def slacks(x, xl, xu, lb_mask, ub_mask):
 
 
 def _msum(v, mask):
-    return torch.sum(torch.where(mask, v, 0.0))
+    return torch.where(mask, v, 0.0).sum(-1)
 
 
 def _mmax(v, mask, init=0.0):
-    if not v.numel():
-        return _scalar(init).to(v.device)
-    return torch.max(torch.where(mask, v, init))
+    if not v.shape[-1]:
+        return _empty_reduce(v, init)
+    return torch.where(mask, v, init).amax(-1)
 
 
 def _mmin(v, mask, init=INF):
-    if not v.numel():
-        return _scalar(init).to(v.device)
-    return torch.min(torch.where(mask, v, init))
+    if not v.shape[-1]:
+        return _empty_reduce(v, init)
+    return torch.where(mask, v, init).amin(-1)
 
 
 def _amax(v):
-    return v.abs().max() if v.numel() else _scalar(0.0).to(v.device)
+    return v.abs().amax(-1) if v.shape[-1] else _empty_reduce(v, 0.0)
 
 
 # -- barrier function --------------------------------------------------------
@@ -62,22 +73,25 @@ def _amax(v):
 def get_varphi(obj_val, dl, du, lb_mask, ub_mask, mu):
     """φ = f - μ Σ log(dl) - μ Σ log(du); +Inf outside the interior
     (kernels.jl:263-281)."""
-    bad = torch.any(lb_mask & (dl <= 0)) | torch.any(ub_mask & (du <= 0))
+    bad = (lb_mask & (dl <= 0)).any(-1) | (ub_mask & (du <= 0)).any(-1)
     safe_l = torch.where(lb_mask & (dl > 0), dl, 1.0)
     safe_u = torch.where(ub_mask & (du > 0), du, 1.0)
-    val = (obj_val - mu * torch.sum(torch.log(safe_l))
-           - mu * torch.sum(torch.log(safe_u)))
+    val = (obj_val - mu * torch.log(safe_l).sum(-1)
+           - mu * torch.log(safe_u).sum(-1))
     return torch.where(bad, INF, val)
 
 
 def get_varphi_d(f, dl, du, lb_mask, ub_mask, dx, mu):
     """Directional derivative of φ (kernels.jl:341-354)."""
+    mu = as_col(mu)
     term = (
         f
         - torch.where(lb_mask, mu / dl, 0.0)
         + torch.where(ub_mask, mu / du, 0.0)
     )
-    return torch.dot(term, dx)
+    if term.ndim == 1:
+        return torch.dot(term, dx)
+    return (term * dx).sum(-1)
 
 
 # -- residuals ---------------------------------------------------------------
@@ -88,7 +102,7 @@ def get_inf_pr(c):
 
 
 def get_theta(c):
-    return c.abs().sum()
+    return c.abs().sum(-1)
 
 
 def get_inf_du(f, zl, zu, jacl, sd):
@@ -96,13 +110,14 @@ def get_inf_du(f, zl, zu, jacl, sd):
 
 
 def get_inf_compl(dl, du, zl, zu, lb_mask, ub_mask, mu, sc):
+    mu = as_col(mu)
     a = _mmax(torch.abs(dl * zl - mu), lb_mask)
     b = _mmax(torch.abs(du * zu - mu), ub_mask)
     return torch.maximum(a, b) / sc
 
 
 def get_sd(y, zl, zu, lb_mask, ub_mask, m, nlb, nub, s_max):
-    total = (torch.sum(torch.abs(y)) + _msum(torch.abs(zl), lb_mask)
+    total = (torch.abs(y).sum(-1) + _msum(torch.abs(zl), lb_mask)
              + _msum(torch.abs(zu), ub_mask))
     return torch.clamp_min(total / max(1, m + nlb + nub), s_max) / s_max
 
@@ -114,7 +129,7 @@ def get_sc(zl, zu, lb_mask, ub_mask, nlb, nub, s_max):
 
 def get_average_complementarity(dl, du, zl, zu, lb_mask, ub_mask, nlb, nub):
     if nlb + nub == 0:
-        return _scalar(0.0).to(dl.device)
+        return _empty_reduce(dl, 0.0)
     return (_msum(dl * zl, lb_mask) + _msum(du * zu, ub_mask)) / (nlb + nub)
 
 
@@ -127,24 +142,26 @@ def get_min_complementarity(dl, du, zl, zu, lb_mask, ub_mask):
 
 def get_alpha_max(x, xl, xu, dx, tau, lb_mask, ub_mask):
     """Fraction-to-the-boundary for the primal step (kernels.jl:356-371)."""
+    tau = as_col(tau)
     cand_l = torch.where(lb_mask & (dx < 0), (xl - x) * tau / dx, INF)
     cand_u = torch.where(ub_mask & (dx > 0), (xu - x) * tau / dx, INF)
-    if not dx.numel():
-        return _scalar(1.0).to(dx.device)
-    return torch.clamp_max(torch.minimum(cand_l.min(), cand_u.min()), 1.0)
+    if not dx.shape[-1]:
+        return _empty_reduce(dx, 1.0)
+    return torch.clamp_max(torch.minimum(cand_l.amin(-1), cand_u.amin(-1)), 1.0)
 
 
 def get_alpha_z(zl, zu, dzl, dzu, tau, lb_mask, ub_mask):
     """Fraction-to-the-boundary for bound duals (kernels.jl:373-388)."""
+    tau = as_col(tau)
     cand_l = torch.where(lb_mask & (dzl < 0), -zl * tau / dzl, INF)
     cand_u = torch.where(ub_mask & (dzu < 0), -zu * tau / dzu, INF)
-    if not zl.numel():
-        return _scalar(1.0).to(zl.device)
-    return torch.clamp_max(torch.minimum(cand_l.min(), cand_u.min()), 1.0)
+    if not zl.shape[-1]:
+        return _empty_reduce(zl, 1.0)
+    return torch.clamp_max(torch.minimum(cand_l.amin(-1), cand_u.amin(-1)), 1.0)
 
 
 def get_rel_search_norm(x, dx):
-    return torch.max(torch.abs(dx) / (1.0 + torch.abs(x)))
+    return (torch.abs(dx) / (1.0 + torch.abs(x))).amax(-1)
 
 
 # -- barrier schedule (host floats) -----------------------------------------
@@ -169,7 +186,8 @@ def get_tau(mu, tau_min):
 class Filter(NamedTuple):
     """Fixed-capacity filter, as in the JAX package (the reference keeps an
     unbounded Vector, src/IPM/IPM.jl:99).  When full, the newest entry
-    overwrites the last slot."""
+    overwrites the last slot.  A batch's filter holds ``(B, K)`` tables and
+    a ``(B,)`` count; :func:`filter_lanes` applies the ops below to it."""
 
     th: np.ndarray    # (K,) float64
     ph: np.ndarray    # (K,) float64
@@ -197,6 +215,27 @@ def filter_augment(filt: Filter, theta, varphi, gamma_theta) -> Filter:
     th[slot] = (1.0 - gamma_theta) * theta
     ph[slot] = varphi - gamma_theta * theta
     return Filter(th, ph, min(filt.count + 1, len(filt.th)))
+
+
+def filter_lane(filt: Filter, i: int) -> Filter:
+    """Lane ``i`` of a batch's filter, as one solve's filter."""
+    return Filter(filt.th[i], filt.ph[i], int(filt.count[i]))
+
+
+def filter_stack(filters) -> Filter:
+    """One solve's filters -> a batch's filter, one lane each."""
+    return Filter(np.stack([f.th for f in filters]),
+                  np.stack([f.ph for f in filters]),
+                  np.array([f.count for f in filters], dtype=np.int64))
+
+
+def filter_lanes(op, filt: Filter, mask, *per_lane) -> Filter:
+    """``op(lane_filter, *args)`` on each lane of a batch's filter where the
+    numpy ``mask`` holds (the other lanes unchanged); ``per_lane`` are
+    ``(B,)`` arrays, lane ``i`` passing their ``i``-th entries."""
+    return filter_stack([
+        op(filter_lane(filt, i), *(a[i] for a in per_lane)) if on
+        else filter_lane(filt, i) for i, on in enumerate(mask)])
 
 
 def is_filter_acceptable(filt: Filter, theta, varphi) -> bool:
@@ -333,7 +372,7 @@ def initialize_variables(x, xl, xu, lb_mask, ub_mask, bound_push, bound_fac):
 def adjust_boundary(x, xl, xu, lb_mask, ub_mask, mu):
     """Relax bounds that the iterate is pressing against (kernels.jl:656-673)."""
     eps = torch.finfo(x.dtype).eps
-    c1 = eps * mu
+    c1 = eps * as_col(mu)
     c2 = eps**0.75
     xl2 = torch.where(
         lb_mask & (x - xl < c1), xl - c2 * torch.clamp_min(torch.abs(x), 1.0), xl
@@ -346,6 +385,7 @@ def adjust_boundary(x, xl, xu, lb_mask, ub_mask, mu):
 
 def reset_bound_dual(z, d, mask, mu, kappa_sigma):
     """σ-clipping of bound duals (kernels.jl:775-800); `d` is the slack."""
+    mu = as_col(mu)
     d_safe = torch.where(mask, d, 1.0)
     clipped = torch.maximum(
         torch.minimum(z, kappa_sigma * mu / d_safe), mu / (kappa_sigma * d_safe)
@@ -355,6 +395,7 @@ def reset_bound_dual(z, d, mask, mu, kappa_sigma):
 
 def dual_inf_perturbation(px, llb_mask, uub_mask, mu, kappa_d):
     """κ_d damping on one-side-bounded variables (kernels.jl:818-823)."""
+    mu = as_col(mu)
     return px - torch.where(llb_mask, mu * kappa_d, 0.0) + torch.where(
         uub_mask, mu * kappa_d, 0.0
     )

@@ -15,6 +15,11 @@ constraint / Jacobian scaling, the MakeParameter treatment of fixed
 variables, equality relaxation and the min/max sign flip.  The index sets
 are host-side numpy masks; :meth:`SparseProblem.to` copies the ones the
 evaluations need onto the solver's device once.
+
+Every evaluation takes the model's parameters ``theta`` (ignored unless
+the model is parametric) and broadcasts over a leading lane axis: ``w
+(B, nw)`` with ``theta (B,)`` and a batch :class:`Scaling` evaluates B
+scenarios at once.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.model import SparseNLPModel, to_tensor
+from .kernels import as_col
 from ..ops.segment import segment_map, segment_max
 from ..utils.options import (
     EqualityTreatment,
@@ -37,7 +43,8 @@ from ..utils.options import (
 
 class Scaling(NamedTuple):
     """Scaling factors computed once at ``initialize``: the objective scale
-    is a host float, the constraint scale a float64 tensor ``(m,)``."""
+    is a host float, the constraint scale a float64 tensor ``(m,)``; for a
+    batch, a ``(B,)`` tensor and a ``(B, m)`` tensor."""
 
     obj_scale: float
     con_scale: torch.Tensor
@@ -118,88 +125,104 @@ class SparseProblem:
     def zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float64, device=self.device)
 
+    # -- model calls: a parametric model takes theta last --------------------
+
+    def _call(self, fn, *args, theta=None):
+        return fn(*args, theta) if self.model.is_parametric else fn(*args)
+
     # -- evaluation pipeline ----------------------------------------------
 
     def x_of(self, w):
-        return w[: self.n]
+        return w[..., : self.n]
 
     def s_of(self, w):
-        return w[self.n:]
+        return w[..., self.n:]
 
     def scatter_slack(self, s):
-        """(ns,) slack values -> (m,) with zeros on equality rows."""
-        out = self.zeros(self.m)
+        """(…, ns) slack values -> (…, m) with zeros on equality rows."""
+        out = self.zeros(*s.shape[:-1], self.m)
         if self.ns:
-            out[self.t.slack_sel] = s
+            out[..., self.t.slack_sel] = s
         return out
 
     def gather_ineq(self, c):
-        """(m,) -> (ns,) values on inequality rows."""
-        return c[self.t.slack_sel]
+        """(…, m) -> (…, ns) values on inequality rows."""
+        return c[..., self.t.slack_sel]
 
-    def eval_obj(self, scal: Scaling, w):
-        return self.sign * scal.obj_scale * self.model.obj(self.x_of(w))
+    def eval_obj(self, scal: Scaling, w, theta=None):
+        return self.sign * scal.obj_scale * self._call(
+            self.model.obj, self.x_of(w), theta=theta)
 
-    def eval_grad(self, scal: Scaling, w):
-        """(nw,) gradient; slack part is zero."""
+    def eval_grad(self, scal: Scaling, w, theta=None):
+        """(…, nw) gradient; slack part is zero."""
         x = self.x_of(w)
-        g = scal.obj_scale * self.model.grad(x)
+        g = as_col(scal.obj_scale) * self._call(self.model.grad, x, theta=theta)
         if self.fixed_mask.any():
             # MakeParameter: proximal pull to the fixed value
             g = torch.where(self.t.fixed, x - self.t.xl_fixed, g)
         g = self.sign * g
-        return torch.cat([g, self.zeros(self.ns)])
+        return torch.cat([g, self.zeros(*g.shape[:-1], self.ns)], -1)
 
-    def eval_cons(self, scal: Scaling, w):
-        """(m,) internal constraints c(w)."""
+    def eval_cons(self, scal: Scaling, w, theta=None):
+        """(…, m) internal constraints c(w)."""
         if self.m == 0:
-            return self.zeros(0)
+            return self.zeros(*w.shape[:-1], 0)
         x, s = self.x_of(w), self.s_of(w)
-        c = scal.con_scale * self.model.cons(x)
+        c = scal.con_scale * self._call(self.model.cons, x, theta=theta)
         c = c - self.scatter_slack(s)
         c = c - scal.con_scale * self.t.rhs
         return c
 
-    def eval_jac(self, scal: Scaling, w):
-        """(nnzj+ns,) scaled jacobian values; slack entries are the
+    def eval_jac(self, scal: Scaling, w, theta=None):
+        """(…, nnzj+ns) scaled jacobian values; slack entries are the
         trailing -1s."""
-        vals = self.model.jac_coords(self.x_of(w))
-        vals = vals * scal.con_scale[self.t.jac_rows]
+        vals = self._call(self.model.jac_coords, self.x_of(w), theta=theta)
+        vals = vals * scal.con_scale[..., self.t.jac_rows]
         if self.fixed_mask.any():
             vals = torch.where(self.t.jac_fixed, 0.0, vals)
-        return torch.cat([vals, torch.full((self.ns,), -1.0,
-                                           dtype=vals.dtype,
-                                           device=vals.device)])
+        return torch.cat([vals, vals.new_full(vals.shape[:-1] + (self.ns,),
+                                              -1.0)], -1)
 
-    def eval_lag_hess(self, scal: Scaling, w, y, is_resto: bool = False):
-        obj_weight = (0.0 if is_resto else 1.0) * self.sign * scal.obj_scale
-        vals = self.model.hess_coords(self.x_of(w), y * scal.con_scale,
-                                      obj_weight)
+    def eval_lag_hess(self, scal: Scaling, w, y, theta=None,
+                      is_resto: bool = False):
+        obj_weight = ((0.0 if is_resto else 1.0) * self.sign
+                      * as_col(scal.obj_scale))
+        vals = self._call(self.model.hess_coords, self.x_of(w),
+                          y * scal.con_scale, obj_weight, theta=theta)
         if self.fixed_mask.any():
             vals = torch.where(self.t.hess_fixed, 0.0, vals)
             vals = torch.where(self.t.hess_unit, 1.0, vals)
         return vals
 
-    def compute_scaling(self, w0) -> Scaling:
+    def compute_scaling(self, w0, theta=None) -> Scaling:
         """Sparse row-max scaling (set_con_scale_sparse!,
-        nlpmodels.jl:229-246)."""
+        nlpmodels.jl:229-246); per lane for a batch ``w0 (B, nw)``."""
+        lead = w0.shape[:-1]
         if not self.opts.nlp_scaling:
-            return Scaling(1.0, torch.ones(self.m, dtype=torch.float64,
-                                           device=self.device))
+            ones = torch.ones(lead + (self.m,), dtype=torch.float64,
+                              device=self.device)
+            return Scaling(1.0 if not lead else ones.new_ones(lead), ones)
         max_g = self.opts.nlp_scaling_max_gradient
         x = self.x_of(w0)
         if self.m > 0:
-            vals = self.model.jac_coords(x)
+            vals = self._call(self.model.jac_coords, x, theta=theta)
             row_max = segment_max(vals.abs(), self.t.row_table, 1.0)
             con_scale = torch.clamp_max(max_g / row_max, 1.0)
         else:
-            con_scale = self.zeros(0)
-        gnorm = float(self.model.grad(x).abs().max()) if self.n else 1.0
-        obj_scale = min(1.0, max_g / max(gnorm, 1e-300))
-        return Scaling(obj_scale, con_scale)
+            con_scale = self.zeros(*lead, 0)
+        if not lead:
+            gnorm = (float(self._call(self.model.grad, x, theta=theta)
+                           .abs().max()) if self.n else 1.0)
+            return Scaling(min(1.0, max_g / max(gnorm, 1e-300)), con_scale)
+        gnorm = (self._call(self.model.grad, x, theta=theta).abs().amax(-1)
+                 .tolist() if self.n else [1.0] * lead[0])
+        obj_scale = [min(1.0, max_g / max(g, 1e-300)) for g in gnorm]
+        return Scaling(torch.tensor(obj_scale, dtype=torch.float64,
+                                    device=self.device), con_scale)
 
-    def hess_template(self):
-        return self.zeros(len(self.hess_rows))
+    def hess_template(self, lanes: int = None):
+        lead = () if lanes is None else (lanes,)
+        return self.zeros(*lead, len(self.hess_rows))
 
 
 def build_problem(model: SparseNLPModel, opts: MadNLPOptions,

@@ -1,9 +1,12 @@
 """Solver entry points — port of ``madnlp_tpu/ipm/solver.py`` (``MadNLPSolver``,
-``solve``, ``madnlp``, ``ExecutionStats`` and the Ipopt-format printers).
+``solve``, ``solve_batch``, ``batch_summary``, ``madnlp``,
+``ExecutionStats`` and the Ipopt-format printers).
 
 The iteration runs as a host loop over device tensors, one regular step at
-a time.  Entry points run on the card: ``device=None`` means ``"cuda"``,
-and without CUDA they raise; pass ``device="cpu"`` to run on the CPU.
+a time; ``solve_batch`` runs B same-structure scenarios of a parametric
+model in lock step (:mod:`.batch`).  Entry points run on the card:
+``device=None`` means ``"cuda"``, and without CUDA they raise; pass
+``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from ..utils import log as logfmt
 from ..utils.options import KKTSystem, LinearSolver, MadNLPOptions, PrintLevel
 from ..utils.status import Status, get_status_output
 from . import kernels as K
+from .batch import BatchKernel
 from .problem import build_problem
-from .state import State
+from .state import BatchState, State, split_lanes, stack_lanes
 from .step import Kernel
 
 _ACTIVE = (int(Status.REGULAR), int(Status.RESTORE), int(Status.ROBUST))
@@ -85,6 +89,7 @@ class MadNLPSolver:
             self.opts = dataclasses.replace(
                 self.opts, linear_solver=self._sparse_preset(LinearSolver.LDL))
         self.kernel = Kernel(self.prob, self.opts, SparseKKT(self.prob, self.opts))
+        self.batch_kernel = BatchKernel(self.kernel)
         self._output_fh = None
         self.state: Optional[State] = None
 
@@ -178,9 +183,20 @@ class MadNLPSolver:
 
     # ------------------------------------------------------------------
 
-    def solve(self, max_wall_time: Optional[float] = None,
+    def _params(self, params) -> Optional[torch.Tensor]:
+        """The model's parameters on the solver's device (None for a model
+        that takes none); a parametric model defaults to its ``params``."""
+        if not self.model.is_parametric:
+            return None
+        if params is None:
+            params = self.model.params
+        return torch.as_tensor(np.asarray(params, dtype=np.float64),
+                               device=self.device)
+
+    def solve(self, params=None, max_wall_time: Optional[float] = None,
               intermediate_callback=None) -> ExecutionStats:
-        """Solve from the model's initial point.
+        """Solve from the model's initial point; ``params`` are a
+        parametric model's parameters (default: ``model.params``).
 
         ``intermediate_callback(info: dict) -> bool`` is invoked once per
         IPM iteration; returning False aborts with USER_REQUESTED_STOP."""
@@ -188,7 +204,7 @@ class MadNLPSolver:
             raise _later("warm start (re-solving a solved instance)")
         t0 = time.time()
         max_wt = max_wall_time if max_wall_time is not None else self.opts.max_wall_time
-        st = self.kernel.initialize()
+        st = self.kernel.initialize(self._params(params))
         self._init_time = time.time() - t0
         self._print_init()
         status = st.status
@@ -220,8 +236,72 @@ class MadNLPSolver:
         )
         return stats
 
-    def solve_batch(self, *args, **kwargs):
-        raise _later("solve_batch")
+    def solve_batch(self, params_batch, sharding=None, chunk_size="auto",
+                    probe_iters="auto") -> BatchState:
+        """Solve B same-structure scenarios of a parametric model, one per
+        entry of ``params_batch`` (leading axis B), in lock step: every
+        factorization runs through the batched band kernel K3 and every
+        backsolve through K4 (their plain versions on the CPU).
+
+        ``chunk_size``: solve the batch in chunks of this many lanes, one
+        after the other, so that a straggler stalls only its own chunk.
+        ``"auto"`` keeps a batch of at most 16 in one bulk run and
+        otherwise takes the largest divisor of B that is at most 16;
+        ``None`` forces one bulk run.  ``probe_iters``: when chunking, first
+        run this many masked steps on the whole batch, sort the lanes by
+        their remaining error (inf_pr + inf_du + inf_compl + μ) and chunk
+        in that order (``"auto"`` = 3 when chunking, 0 disables).
+
+        Returns the final :class:`BatchState` in the original lane order;
+        summary arrays via :func:`batch_summary`.  A lane that needs soft
+        or robust restoration raises NotImplementedError (a later slice of
+        the port), as does ``sharding``."""
+        if sharding is not None:
+            raise _later("sharding= (a multi-device solve_batch)")
+        theta = torch.as_tensor(np.asarray(params_batch, dtype=np.float64),
+                                device=self.device)
+        B = int(theta.shape[0])
+        if chunk_size == "auto":
+            chunk_size = None
+            if B > 16:
+                chunk_size = max(c for c in range(1, 17) if B % c == 0)
+                if chunk_size == 1:
+                    chunk_size = None
+        if probe_iters == "auto":
+            probe_iters = 3 if chunk_size is not None else 0
+        if chunk_size is not None and B % chunk_size:
+            raise ValueError(f"batch size {B} is not a multiple of "
+                             f"chunk_size {chunk_size}")
+        st = self.batch_kernel.initialize(theta)
+        if chunk_size is None:
+            return self._run_lanes(st, np.arange(B))
+        order = np.arange(B)
+        if probe_iters:
+            st = self._run_lanes(st, order, steps=probe_iters)
+            score = st.inf_pr + st.inf_du + st.inf_compl + st.mu
+            order = np.argsort(score, kind="stable")
+            st = st.take(order)
+        chunks = split_lanes(st, chunk_size)
+        st = stack_lanes([
+            self._run_lanes(c, order[i * chunk_size:(i + 1) * chunk_size])
+            for i, c in enumerate(chunks)])
+        return st.take(np.argsort(order)) if probe_iters else st
+
+    def _run_lanes(self, st: BatchState, lane_ids, steps=None) -> BatchState:
+        """Masked regular steps until no lane is active (at most ``steps``);
+        ``lane_ids`` name the lanes in the caller's order for errors."""
+        done = 0
+        while np.isin(st.status, _ACTIVE).any() and (steps is None
+                                                      or done < steps):
+            st = self.batch_kernel.regular_step(st)
+            done += 1
+            special = np.flatnonzero(np.isin(
+                st.status, (int(Status.RESTORE), int(Status.ROBUST))))
+            if special.size:
+                i = special[0]
+                raise _later(f"restoration (lane {lane_ids[i]}, status "
+                             f"{Status(int(st.status[i])).name})")
+        return st
 
     def _stats(self, st: State, solve_time: float) -> ExecutionStats:
         p = self.prob
@@ -233,16 +313,18 @@ class MadNLPSolver:
         y = st.y.cpu().numpy() * con_scale * (p.sign / obj_scale)
         zl = st.zl[: p.n].cpu().numpy() / obj_scale
         zu = st.zu[: p.n].cpu().numpy() / obj_scale
-        cons = model.cons(x_t).cpu().numpy() if p.m else np.zeros(0)
+        cons = (p._call(model.cons, x_t, theta=st.theta).cpu().numpy()
+                if p.m else np.zeros(0))
         if p.fixed_mask.any():
             # bound multipliers of fixed variables (update_z!,
             # nlpmodels.jl:1075-1087): the gradient of the Lagrangian
             with torch.enable_grad():
                 xx = x_t.detach().requires_grad_(True)
-                g = model.grad(xx)
+                g = p._call(model.grad, xx, theta=st.theta)
                 if p.m:
                     (jt,) = torch.autograd.grad(
-                        model.cons(xx), xx, grad_outputs=st.y * st.scal.con_scale)
+                        p._call(model.cons, xx, theta=st.theta), xx,
+                        grad_outputs=st.y * st.scal.con_scale)
                     g = g + jt
             g = g.detach().cpu().numpy()
             fm = p.fixed_mask
@@ -275,10 +357,35 @@ class MadNLPSolver:
         )
 
 
+_COUNTERS = ("k", "obj_cnt", "grad_cnt", "con_cnt", "jac_cnt", "hess_cnt",
+             "factorization_cnt", "backsolve_cnt")
+
+
+def batch_summary(prob, st: BatchState) -> dict:
+    """Summary arrays of a batched solve (leading lane axis), with the JAX
+    package's keys (``status``, ``iter``, ``objective``, ``inf_pr``,
+    ``inf_du``, ``x``) plus ``counters``: the per-lane counters under
+    ``ExecutionStats.counters``' names."""
+    obj_scale = st.scal.obj_scale.cpu().numpy()
+    counters = {c: getattr(st, c).copy() for c in _COUNTERS}
+    counters["t"] = st.t_cnt.copy()
+    return {
+        "status": st.status.copy(),
+        "iter": st.k.copy(),
+        "objective": prob.sign * st.obj_val / obj_scale,
+        "inf_pr": st.inf_pr.copy(),
+        "inf_du": st.inf_du.copy(),
+        "x": st.x[:, : prob.n].cpu().numpy(),
+        "counters": counters,
+    }
+
+
 def madnlp(model, device=None, **kwargs) -> ExecutionStats:
-    """Build a solver and run it — mirror of ``madnlp(nlp; kwargs...)``."""
+    """Build a solver and run it — mirror of ``madnlp(nlp; kwargs...)``;
+    ``params=`` passes a parametric model's parameters."""
+    params = kwargs.pop("params", None)
     solver = MadNLPSolver(model, device=device, **kwargs)
     try:
-        return solver.solve()
+        return solver.solve(params=params)
     finally:
         solver.close()

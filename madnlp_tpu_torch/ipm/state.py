@@ -9,6 +9,14 @@ state is updated in place by the step functions.
 :func:`state_from_arrays` builds a state from the JAX package's ``State``
 converted to numpy, so one iteration can be run in both packages from the
 same point.
+
+:class:`BatchState` is the state of ``solve_batch``: the same fields with a
+leading lane axis — vectors ``(B, ·)`` on the device, per-lane scalars and
+counters ``(B,)`` numpy arrays on the host, the filter ``(B, capacity)`` —
+plus ``theta``, the lanes' model parameters.  :meth:`BatchState.take`,
+:func:`split_lanes` and :func:`stack_lanes` reorder, chunk and rejoin
+lanes; :func:`batch_state_from_arrays` carries a batch of JAX states
+across.
 """
 
 from __future__ import annotations
@@ -19,9 +27,8 @@ import numpy as np
 import torch
 
 from ..kkt.vec import KKTVec, kkt_zeros
-from .kernels import Filter, filter_init
+from .kernels import Filter, filter_init, filter_stack
 from .problem import Scaling
-
 
 
 @dataclasses.dataclass
@@ -83,6 +90,7 @@ class State:
     hess_cnt: int = 0
     status: int = 0
     scal: Scaling = None
+    theta: object = None    # the model's parameters (parametric models)
     # iteration-log snapshot taken at the reference's print_iter position:
     # k, obj, inf_pr, inf_du, inf_compl, mu, del_w, alpha, ir, ls, ftype,
     # is_resto
@@ -143,3 +151,152 @@ def state_from_arrays(d: dict, device) -> State:
                              vec(d["scal.con_scale"]))
     fields["log_row"] = [float(v) for v in np.asarray(d["log_row"])]
     return State(**fields)
+
+
+@dataclasses.dataclass
+class BatchState:
+    """:class:`State` with a leading lane axis (``solve_batch``).  Vector
+    fields are ``(B, ·)`` float64 tensors; the ``_FLOATS`` fields are
+    float64 and the ``_INTS`` fields int64 numpy arrays ``(B,)``; the filter
+    holds ``(B, capacity)`` tables; ``scal`` a ``(B,)`` objective scale and a
+    ``(B, m)`` constraint scale; ``theta`` the ``(B,)`` parameters."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    zl: torch.Tensor
+    zu: torch.Tensor
+    xl: torch.Tensor
+    xu: torch.Tensor
+    f: torch.Tensor
+    c: torch.Tensor
+    jac: torch.Tensor
+    hess: torch.Tensor
+    jacl: torch.Tensor
+    x_trial: torch.Tensor
+    c_trial: torch.Tensor
+    d: KKTVec
+    p: KKTVec
+    filter: Filter
+    scal: Scaling
+    theta: torch.Tensor
+    obj_val: np.ndarray = None
+    obj_val_trial: np.ndarray = None
+    mu: np.ndarray = None
+    tau: np.ndarray = None
+    theta_max: np.ndarray = None
+    theta_min: np.ndarray = None
+    del_w: np.ndarray = None
+    del_c: np.ndarray = None
+    del_w_last: np.ndarray = None
+    inf_pr: np.ndarray = None
+    inf_du: np.ndarray = None
+    inf_compl: np.ndarray = None
+    inf_compl_mu: np.ndarray = None
+    alpha: np.ndarray = None
+    alpha_z: np.ndarray = None
+    ftype: np.ndarray = None
+    k: np.ndarray = None
+    l_cnt: np.ndarray = None
+    acceptable_cnt: np.ndarray = None
+    unsuccessful_iterate: np.ndarray = None
+    restoration_fail_count: np.ndarray = None
+    t_cnt: np.ndarray = None
+    factorization_cnt: np.ndarray = None
+    backsolve_cnt: np.ndarray = None
+    last_ir: np.ndarray = None
+    obj_cnt: np.ndarray = None
+    grad_cnt: np.ndarray = None
+    con_cnt: np.ndarray = None
+    jac_cnt: np.ndarray = None
+    hess_cnt: np.ndarray = None
+    status: np.ndarray = None
+
+    @property
+    def lanes(self) -> int:
+        return int(self.theta.shape[0])
+
+    def take(self, order) -> "BatchState":
+        """The lanes in ``order`` (a permutation or a selection)."""
+        order = np.asarray(order, dtype=np.int64)
+        idx = torch.as_tensor(order, device=self.x.device)
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (KKTVec, Scaling)):
+                out[f.name] = type(v)(*(a[idx] for a in v))
+            elif isinstance(v, Filter):
+                out[f.name] = Filter(*(a[order].copy() for a in v))
+            elif torch.is_tensor(v):
+                out[f.name] = v[idx]
+            else:
+                out[f.name] = v[order].copy()
+        return BatchState(**out)
+
+
+def split_lanes(st: BatchState, size: int) -> list:
+    """Consecutive chunks of ``size`` lanes."""
+    return [st.take(np.arange(i, i + size)) for i in range(0, st.lanes, size)]
+
+
+def stack_lanes(parts: list) -> BatchState:
+    """Rejoin chunks made by :func:`split_lanes` (in their order)."""
+    out = {}
+    for f in dataclasses.fields(BatchState):
+        vs = [getattr(s, f.name) for s in parts]
+        v = vs[0]
+        if isinstance(v, (KKTVec, Scaling)):
+            out[f.name] = type(v)(*(torch.cat(a) for a in zip(*vs)))
+        elif isinstance(v, Filter):
+            out[f.name] = Filter(*(np.concatenate(a) for a in zip(*vs)))
+        elif torch.is_tensor(v):
+            out[f.name] = torch.cat(vs)
+        else:
+            out[f.name] = np.concatenate(vs)
+    return BatchState(**out)
+
+
+def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, nnzh: int,
+                      filter_capacity: int, theta: torch.Tensor,
+                      device) -> BatchState:
+    def z(k):
+        return torch.zeros((lanes, k), dtype=torch.float64, device=device)
+
+    fields = {k: np.zeros(lanes) for k in _FLOATS}
+    fields.update({k: np.zeros(lanes, dtype=np.int64) for k in _INTS})
+    return BatchState(
+        x=z(nw), y=z(m), zl=z(nw), zu=z(nw), xl=z(nw) - torch.inf,
+        xu=z(nw) + torch.inf, f=z(nw), c=z(m), jac=z(nnzj), hess=z(nnzh),
+        jacl=z(nw), x_trial=z(nw), c_trial=z(m),
+        d=kkt_zeros(nw, m, device, lanes), p=kkt_zeros(nw, m, device, lanes),
+        filter=filter_stack([filter_init(filter_capacity)] * lanes),
+        scal=Scaling(torch.ones(lanes, dtype=torch.float64, device=device),
+                     torch.ones((lanes, m), dtype=torch.float64,
+                                device=device)),
+        theta=theta, **fields)
+
+
+def batch_state_from_arrays(d: dict, device) -> BatchState:
+    """:func:`state_from_arrays` with a leading lane axis on every leaf:
+    the same keys, each holding the stacked ``(B, ...)`` leaves of B JAX
+    states (a batched JAX ``State`` converted to numpy), plus ``"theta"``,
+    the ``(B,)`` parameters."""
+
+    def vec(a):
+        return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
+
+    fields = {k: vec(d[k]) for k in _VECTORS}
+    fields.update({k: np.asarray(d[k], dtype=np.float64).copy()
+                   for k in _FLOATS})
+    fields.update({k: np.asarray(d[k], dtype=np.int64).copy() for k in _INTS})
+    for name in ("d", "p"):
+        fields[name] = KKTVec(*(vec(d[f"{name}.{part}"])
+                                for part in KKTVec._fields))
+    fields["filter"] = Filter(
+        np.asarray(d["filter.th"], dtype=np.float64).copy(),
+        np.asarray(d["filter.ph"], dtype=np.float64).copy(),
+        np.asarray(d["filter.count"], dtype=np.int64).copy(),
+    )
+    fields["scal"] = Scaling(vec(d["scal.obj_scale"]),
+                             vec(d["scal.con_scale"]))
+    fields["theta"] = vec(d["theta"])
+    return BatchState(**fields)

@@ -76,16 +76,17 @@ class Kernel:
         return torch.where(mask, 1.0, 0.0).to(torch.float64)
 
     def eval_obj(self, st, w):
-        return self.prob.eval_obj(st.scal, w)
+        return self.prob.eval_obj(st.scal, w, st.theta)
 
     def eval_cons(self, st, w):
-        return self.prob.eval_cons(st.scal, w)
+        return self.prob.eval_cons(st.scal, w, st.theta)
 
     # ------------------------------------------------------------------
     # initialization (solver.jl:14-77 + nlpmodels.jl:593-636)
     # ------------------------------------------------------------------
 
-    def initialize(self) -> State:
+    def initialize(self, theta=None) -> State:
+        """``theta``: the model's parameters (a tensor; parametric models)."""
         p, o = self.prob, self.opts
         dev = p.device
         st = state_zeros(p.nw, p.m, p.nnzj_aug, len(p.hess_rows),
@@ -109,7 +110,7 @@ class Kernel:
         xv = K.initialize_variables(x0, xl[:n], xu[:n], lb[:n], ub[:n],
                                     o.bound_push, o.bound_fac)
         # slack init from unscaled constraint values (nlpmodels.jl:626-636)
-        g0 = p.model.cons(xv) if p.m else p.zeros(0)
+        g0 = p._call(p.model.cons, xv, theta=theta) if p.m else p.zeros(0)
         s0 = K.initialize_variables(p.gather_ineq(g0), xl[n:], xu[n:],
                                     lb[n:], ub[n:], o.bound_push, o.bound_fac)
         w0 = torch.cat([xv, s0])
@@ -118,7 +119,7 @@ class Kernel:
         y0 = torch.as_tensor(p.model.y0, device=dev) * p.sign
 
         # scaling (computed at the pushed initial point, nlpmodels.jl:693-765)
-        scal = p.compute_scaling(w0)
+        scal = p.compute_scaling(w0, theta)
         if p.m:
             y0 = y0 / torch.clamp_min(scal.con_scale, 1e-300)
         cs_slk = p.gather_ineq(scal.con_scale)
@@ -127,15 +128,16 @@ class Kernel:
         xu[n:] = xu[n:] * cs_slk
 
         st.x, st.y, st.zl, st.zu, st.xl, st.xu, st.scal = w0, y0, zl, zu, xl, xu, scal
+        st.theta = theta
         st.mu = o.barrier_options.mu_init
         st.tau = max(o.tau_min, 1.0 - o.barrier_options.mu_init)
 
         # first evaluations
-        st.jac = p.eval_jac(scal, w0)
-        st.f = p.eval_grad(scal, w0)
-        obj = p.eval_obj(scal, w0)
-        st.c = p.eval_cons(scal, w0)
-        st.hess = p.eval_lag_hess(scal, w0, y0)
+        st.jac = p.eval_jac(scal, w0, theta)
+        st.f = p.eval_grad(scal, w0, theta)
+        obj = p.eval_obj(scal, w0, theta)
+        st.c = p.eval_cons(scal, w0, theta)
+        st.hess = p.eval_lag_hess(scal, w0, y0, theta)
         st.jacl = self.kkt.jtprod(st.jac, y0)
         st.obj_cnt = st.grad_cnt = st.con_cnt = st.jac_cnt = st.hess_cnt = 1
 
@@ -462,7 +464,7 @@ class Kernel:
 
         # Jacobian refresh (skipped at k == 0: evaluated in initialize)
         if not o.jacobian_constant and st.k > 0:
-            st.jac = p.eval_jac(st.scal, st.x)
+            st.jac = p.eval_jac(st.scal, st.x, st.theta)
             st.jac_cnt += 1
         st.jacl = self.kkt.jtprod(st.jac, st.y)
 
@@ -500,7 +502,7 @@ class Kernel:
 
         # Hessian refresh
         if not o.hessian_constant and st.k > 0:
-            st.hess = p.eval_lag_hess(st.scal, st.x, st.y)
+            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta)
             st.hess_cnt += 1
         self.update_barrier_monotone(st, sc)
         p_rhs = self._aug_rhs(st, st.c, st.mu)
@@ -526,7 +528,7 @@ class Kernel:
         st.zu = K.reset_bound_dual(zu, du_, self.ub, st.mu, o.kappa_sigma)
         st.x, st.y, st.xl, st.xu = x, y, xl, xu
         st.c, st.obj_val = st.c_trial, st.obj_val_trial
-        st.f = p.eval_grad(st.scal, x)
+        st.f = p.eval_grad(st.scal, x, st.theta)
         st.grad_cnt += 1
         st.k += 1
         st.status = int(S.REGULAR)

@@ -14,15 +14,20 @@ with the bound duals eliminated and recovered analytically
 slice of the port; this class carries the diagonals, the reduction and
 recovery of the bound-dual rows, the refined solve with μ-aware stopping,
 and leaves assembly, factorization, backsolve and operator to subclasses.
+
+Every function also takes a batch: vectors and context with a leading
+lane axis ``(B, ·)``, an ``active`` lane mask (numpy bool ``(B,)``) that
+selects the lanes a backsolve or refinement runs for, and a per-lane μ.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..ops.refine import solve_refine
+from ..ops.refine import solve_refine, solve_refine_batched
 from ..utils.options import LinearSolver, MadNLPOptions
 from .vec import KKTVec
 
@@ -107,27 +112,43 @@ class DenseKKT:
         dzu = torch.where(self.ub, (ctx.zu * w.xp - pzu) / ctx.du_, 0.0)
         return w._replace(zl=dzl, zu=dzu)
 
-    def solve(self, ctx: KKTContext, b: KKTVec) -> KKTVec:
-        """solve_kkt! for the reduced system (factorization.jl:41-46)."""
+    def solve(self, ctx: KKTContext, b: KKTVec, active=None) -> KKTVec:
+        """solve_kkt! for the reduced system (factorization.jl:41-46);
+        for a batch, the backsolve runs for the ``active`` lanes."""
         nw = self.prob.nw
         w = self.reduce_rhs(ctx, b)
         if self.prob.m > 0:
-            sol = self._backsolve(ctx.factor, torch.cat([w.xp, w.y]))
-            w = w._replace(xp=sol[:nw], y=sol[nw:])
+            sol = self._backsolve(ctx.factor, torch.cat([w.xp, w.y], -1),
+                                  active)
+            w = w._replace(xp=sol[..., :nw], y=sol[..., nw:])
         else:
-            w = w._replace(xp=self._backsolve(ctx.factor, w.xp))
+            w = w._replace(xp=self._backsolve(ctx.factor, w.xp, active))
         return self.finish_aug_solve(ctx, w, b.zl, b.zu)
 
-    def solve_refine(self, ctx: KKTContext, b: KKTVec, mu=None):
+    def solve_refine(self, ctx: KKTContext, b: KKTVec, mu=None, active=None):
         """Refined solve; ``mu`` (optional) enables the μ-aware stopping
         target (RichardsonOptions.mu_scaled): the effective tol is
-        ``max(tol, min(mu_tol_cap, mu_tol_factor·μ))``."""
+        ``max(tol, min(mu_tol_cap, mu_tol_factor·μ))``.  With ``active``
+        the solve is batched: ``mu`` is a ``(B,)`` array and the result
+        ``(x, converged (B,), iters (B,))``."""
         if self.opts.iterator != "richardson":
             raise NotImplementedError(
                 f"iterator={self.opts.iterator!r} comes in a later slice "
                 "of the port")
         tol = self.opts.richardson_tol
         ro = self.opts.richardson
+        if active is not None:
+            if mu is not None and ro.mu_scaled:
+                tol = np.maximum(tol, np.minimum(
+                    ro.mu_tol_cap, ro.mu_tol_factor * np.asarray(mu)))
+            return solve_refine_batched(
+                lambda w, run: self.solve(ctx, w, run),
+                lambda x: self.mul(ctx, x),
+                b, active,
+                max_iter=ro.max_iter,
+                tol=tol,
+                acceptable_tol=self.opts.richardson_acceptable_tol,
+            )
         if mu is not None and ro.mu_scaled:
             tol = max(tol, min(ro.mu_tol_cap, ro.mu_tol_factor * mu))
         return solve_refine(
@@ -141,12 +162,12 @@ class DenseKKT:
 
     # -- provided by the storage-specific subclass ------------------------
 
-    def _backsolve(self, factor, rhs):
+    def _backsolve(self, factor, rhs, active=None):
         raise NotImplementedError(
             "dense KKT storage comes in a later slice of the port")
 
     def build_and_factorize(self, hess, jac, reg, du_diag, dl, du_, zl, zu,
-                            rr: bool = False):
+                            rr: bool = False, active=None, prev=None):
         raise NotImplementedError(
             "dense KKT storage comes in a later slice of the port")
 

@@ -12,6 +12,12 @@ mat-vecs, no scatters).
 
 The Jacobian and Hessian products are gather-sums over host-built
 contributor tables (:mod:`..ops.segment`), deterministic on every device.
+
+A batch of same-structure systems (``solve_batch``) runs the same path
+with a leading lane axis: assembly, Ruiz and inertia per lane, the factor
+through K3 and the backsolves through K4, both under an ``active`` lane
+mask.  A lane left out of a factorization keeps its previous factor, so
+the masked δ-regularization ladder never overwrites a factor still in use.
 """
 
 from __future__ import annotations
@@ -104,28 +110,50 @@ class SparseKKT(DenseKKT):
         self._bperm = torch.as_tensor(self.bstruct.perm, device=self.device)
         self._biperm = torch.as_tensor(self.bstruct.iperm, device=self.device)
 
-    def _banded_factorize_coo(self, vals):
+    def _banded_factorize_coo(self, vals, active=None, prev=None):
         """One assembly of the raw f64 band; Ruiz, the congruence scaling
-        and the refinement operator reuse it."""
+        and the refinement operator reuse it.  For a batch (``vals (B,
+        nnz)``), the lanes that ``active`` leaves out keep ``prev``'s
+        factor (K3 does not touch them)."""
         bs = self.bstruct
+        lead = vals.shape[:-1]
         raw = self._assemble(vals)
         raw_sym = banded_symmetrize(bs, raw)
         if self.opts.kkt_scaling == "ruiz":
             d_perm = ruiz_band(bs, raw_sym)
-            d = d_perm.reshape(-1)[self._biperm]
+            d = d_perm.reshape(lead + (-1,))[..., self._biperm]
         else:
-            d = vals.new_ones((bs.N,))
-            d_perm = vals.new_ones((bs.nbp, bs.b))
+            d = vals.new_ones(lead + (bs.N,))
+            d_perm = vals.new_ones(lead + (bs.nbp, bs.b))
         band = scale_band(bs, raw, d_perm).to(self.fact_dtype)
-        inner = banded_kernels.factorize(bs, band)
+        if active is None:
+            inner = banded_kernels.factorize(bs, band)
+            return EquilibratedFactor(inner=inner, d=d, opband=raw_sym)
+        if prev is None:
+            invL = band.new_zeros((lead[0], bs.nbp, bs.b, bs.b))
+            dpiv = band.new_ones((lead[0], bs.nb * bs.b))
+        else:
+            on = torch.as_tensor(active, device=self.device)
+            on5 = on[:, None, None, None, None]
+            band = torch.where(on5, band, prev.inner.band)
+            raw_sym = torch.where(on5, raw_sym, prev.opband)
+            d = torch.where(on[:, None], d, prev.d)
+            # K3 rewrites the active lanes' invL and pivots in full and
+            # leaves the others as they are
+            invL, dpiv = prev.inner.invL, prev.inner.d
+        inner = banded_kernels.factorize_batched(bs, band, invL, dpiv, active)
         return EquilibratedFactor(inner=inner, d=d, opband=raw_sym)
 
-    def _backsolve(self, factor, rhs):
+    def _backsolve(self, factor, rhs, active=None):
         # K x = b  ⟺  (DKD)(D⁻¹x) = D b
         scaled = (factor.d * rhs).to(self.fact_dtype)
-        xp = banded_kernels.solve(self.bstruct, factor.inner,
-                                  scaled[self._bperm])
-        return factor.d * xp[self._biperm].to(rhs.dtype)
+        if active is None:
+            xp = banded_kernels.solve(self.bstruct, factor.inner,
+                                      scaled[self._bperm])
+            return factor.d * xp[self._biperm].to(rhs.dtype)
+        xp = banded_kernels.solve_batched(self.bstruct, factor.inner,
+                                          scaled[..., self._bperm], active)
+        return factor.d * xp[..., self._biperm].to(rhs.dtype)
 
     def inertia(self, ctx):
         return banded_inertia(self.bstruct, ctx.factor.inner)
@@ -133,34 +161,43 @@ class SparseKKT(DenseKKT):
     # -- sparse products ---------------------------------------------------
 
     def jtprod(self, jac_vals, y):
-        """jacl = Aᵀy over the full primal space."""
+        """jacl = Aᵀy over the full primal space (per lane)."""
         p = self.prob
         if p.m == 0:
-            return torch.zeros(p.nw, dtype=jac_vals.dtype, device=self.device)
-        return segment_sum(jac_vals * y[self.jr], self._jt_table)
+            return jac_vals.new_zeros(jac_vals.shape[:-1] + (p.nw,))
+        return segment_sum(jac_vals * y[..., self.jr], self._jt_table)
 
     def jprod(self, jac_vals, v):
-        """J·v."""
+        """J·v (per lane)."""
         p = self.prob
         if p.m == 0:
-            return torch.zeros(0, dtype=jac_vals.dtype, device=self.device)
-        return segment_sum(jac_vals * v[self.jc], self._jp_table)
+            return jac_vals.new_zeros(jac_vals.shape[:-1] + (0,))
+        return segment_sum(jac_vals * v[..., self.jc], self._jp_table)
 
     def hess_mul(self, hess_vals, v):
-        """(n,) symmetric product from the lower-triangular values."""
-        out = segment_sum(hess_vals * v[self.hc], self._hr_table)
+        """(…, n) symmetric product from the lower-triangular values."""
+        out = segment_sum(hess_vals * v[..., self.hc], self._hr_table)
         off = torch.where(self.h_offdiag, hess_vals, 0.0)
-        return out + segment_sum(off * v[self.hr], self._hc_table)
+        return out + segment_sum(off * v[..., self.hr], self._hc_table)
 
     # -- assembly ----------------------------------------------------------
 
     def build_and_factorize(self, hess, jac, reg, du_diag, dl, du_, zl, zu,
-                            rr: bool = False):
+                            rr: bool = False, active=None, prev=None):
+        """Assemble and factor.  For a batch, ``active`` (numpy bool (B,))
+        selects the lanes to factor and ``prev`` (a batched context or
+        None) supplies the other lanes' factor and diagonals."""
         if rr:
             raise _later("restoration")
         pr_diag, du_diag = self.aug_diagonals(reg, du_diag, dl, du_, zl, zu)
-        vals = torch.cat([pr_diag, du_diag, jac, hess])
-        factor = self._banded_factorize_coo(vals)
+        vals = torch.cat([pr_diag, du_diag, jac, hess], -1)
+        factor = self._banded_factorize_coo(
+            vals, active, None if prev is None else prev.factor)
+        if prev is not None:
+            on = torch.as_tensor(active, device=self.device)[:, None]
+            pr_diag = torch.where(on, pr_diag, prev.pr_diag)
+            du_diag = torch.where(on, du_diag, prev.du_diag)
+            reg = torch.where(on, reg, prev.reg)
         return KKTContext(
             hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag, reg=reg,
             dl=dl, du_=du_, zl=zl, zu=zu, factor=factor,
@@ -174,16 +211,16 @@ class SparseKKT(DenseKKT):
         elementwise."""
         p = self.prob
         lb, ub = self.lb, self.ub
-        vfull = torch.cat([v.xp, v.y])
+        vfull = torch.cat([v.xp, v.y], -1)
         kv = banded_symv(self.bstruct, ctx.factor.opband,
-                         vfull[self._bperm])[self._biperm]
+                         vfull[..., self._bperm])[..., self._biperm]
         sigma = (
             torch.where(lb, ctx.zl / ctx.dl, 0.0)
             + torch.where(ub, ctx.zu / ctx.du_, 0.0)
         )
-        wx = kv[: p.nw] - sigma * v.xp
+        wx = kv[..., : p.nw] - sigma * v.xp
         wx = wx - torch.where(lb, v.zl, 0.0) + torch.where(ub, v.zu, 0.0)
-        wy = kv[p.nw:] if p.m > 0 else v.y
+        wy = kv[..., p.nw:] if p.m > 0 else v.y
         wzl = torch.where(lb, ctx.zl * v.xp + ctx.dl * v.zl, 0.0)
         wzu = torch.where(ub, ctx.zu * v.xp - ctx.du_ * v.zu, 0.0)
         return KKTVec(xp=wx, y=wy, zl=wzl, zu=wzu)

@@ -5,6 +5,8 @@
 * ``y``   (m,)   constraint duals
 * ``zl``  (nw,)  lower-bound duals — zero where the component has no lower bound
 * ``zu``  (nw,)  upper-bound duals — zero where no upper bound
+
+A batch of solves carries a leading lane axis on every part: ``(B, nw)``.
 """
 
 from __future__ import annotations
@@ -27,14 +29,21 @@ class KKTVec(NamedTuple):
         return KKTVec(*(alpha * a for a in self))
 
 
-def kkt_zeros(nw: int, m: int, device=None) -> KKTVec:
+def kkt_zeros(nw: int, m: int, device=None, lanes: int = None) -> KKTVec:
+    lead = () if lanes is None else (lanes,)
+
     def z(k):
-        return torch.zeros((k,), dtype=torch.float64, device=device)
+        return torch.zeros(lead + (k,), dtype=torch.float64, device=device)
 
     return KKTVec(xp=z(nw), y=z(m), zl=z(nw), zu=z(nw))
 
 
+def kkt_where(mask: torch.Tensor, a: KKTVec, b: KKTVec) -> KKTVec:
+    """Lane by lane: ``a`` where ``mask`` (B,) holds, else ``b``."""
+    return KKTVec(*(torch.where(mask[:, None], x, y) for x, y in zip(a, b)))
+
+
 def norm_inf(v: KKTVec) -> torch.Tensor:
-    """max |·| over all four parts, as a 0-d tensor (no host sync)."""
-    parts = [a.abs().max() for a in v if a.numel()]
-    return torch.stack(parts).max()
+    """max |·| over all four parts (per lane), as a tensor (no host sync)."""
+    parts = [a.abs().amax(-1) for a in v if a.shape[-1]]
+    return torch.stack(parts).amax(0)

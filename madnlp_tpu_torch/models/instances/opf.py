@@ -15,7 +15,9 @@ and ``h'' = −h``, so the 4×4 edge Hessian of ``Σ w_o f_o`` needs only
 
 Bus sums of edge flows are gather-sums over a host-built contributor table
 (:mod:`..ops.segment`), so the constraint values are bit-identical from run
-to run on the card.
+to run on the card.  Every callable broadcasts over a leading lane axis
+(``x (B, n)``), which is how ``solve_batch`` evaluates a batch of
+scenarios in one pass.
 """
 
 from __future__ import annotations
@@ -90,24 +92,31 @@ def _instance(nb: int, seed: int) -> dict:
     )
 
 
-def build_sparse(nb: int = 118, seed: int = 0) -> SparseNLPModel:
+def build_sparse(nb: int = 118, seed: int = 0,
+                 parametric: bool = False) -> SparseNLPModel:
     """Sparse ACOPF with edge-local derivatives, n = 2·nb + 2·ng variables
     and m = 2·nb power-balance rows (same instance as the JAX package's
-    ``opf.build_sparse(nb, seed)``)."""
-    return build_sparse_from_instance(_instance(nb, seed))
+    ``opf.build_sparse(nb, seed, parametric)``).
+
+    ``parametric=True``: ``params`` is a scalar load-scaling factor that
+    multiplies Pd/Qd — the multi-scenario model of ``solve_batch``.  The
+    loads enter the constraints additively, so the derivative callbacks
+    ignore it."""
+    return build_sparse_from_instance(_instance(nb, seed), parametric)
 
 
 def _edge_terms(g, b, c, s):
-    """(h, h') of the four edge outputs (p_i, p_j, q_i, q_j), each (nl, 4);
-    the off-diagonal Ybus entry of the edge is −(g + jb)."""
+    """(h, h') of the four edge outputs (p_i, p_j, q_i, q_j), each
+    (…, nl, 4); the off-diagonal Ybus entry of the edge is −(g + jb)."""
     h = torch.stack([-g * c - b * s, -g * c + b * s,
-                     -g * s + b * c, g * s + b * c], dim=1)
+                     -g * s + b * c, g * s + b * c], dim=-1)
     hp = torch.stack([g * s - b * c, g * s + b * c,
-                      -g * c - b * s, g * c - b * s], dim=1)
+                      -g * c - b * s, g * c - b * s], dim=-1)
     return h, hp
 
 
-def build_sparse_from_instance(data: dict) -> SparseNLPModel:
+def build_sparse_from_instance(data: dict,
+                               parametric: bool = False) -> SparseNLPModel:
     """Build the sparse ACOPF model from an instance dict as returned by
     ``_instance`` (numpy arrays; the JAX package's dict works as is)."""
     ei = np.asarray(data["ei"], dtype=np.int64)
@@ -139,39 +148,42 @@ def build_sparse_from_instance(data: dict) -> SparseNLPModel:
     )
 
     def split(x):
-        return x[:nb], x[nb:2 * nb], x[2 * nb:2 * nb + ng], x[2 * nb + ng:]
+        return (x[..., :nb], x[..., nb:2 * nb], x[..., 2 * nb:2 * nb + ng],
+                x[..., 2 * nb + ng:])
 
     def edge_state(x, k):
-        va, vm = x[:nb], x[nb:2 * nb]
-        th = va[k.ei] - va[k.ej]
-        vmi, vmj = vm[k.ei], vm[k.ej]
+        va, vm = x[..., :nb], x[..., nb:2 * nb]
+        th = va[..., k.ei] - va[..., k.ej]
+        vmi, vmj = vm[..., k.ei], vm[..., k.ej]
         return torch.cos(th), torch.sin(th), vmi, vmj, vmi * vmj
 
-    def cons(x):
+    def cons_scaled(x, scale):
         k = K.on(x.device)
         _, vm, pg, qg = split(x)
         c, s, _, _, vv = edge_state(x, k)
         h, _ = _edge_terms(k.ge, k.be, c, s)
-        flows = vv[:, None] * h                       # (nl, 4)
-        P = segment_sum(torch.cat([flows[:, 0], flows[:, 1]]), k.bus_table)
-        Q = segment_sum(torch.cat([flows[:, 2], flows[:, 3]]), k.bus_table)
+        flows = vv[..., None] * h                     # (..., nl, 4)
+        P = segment_sum(torch.cat([flows[..., 0], flows[..., 1]], -1),
+                        k.bus_table)
+        Q = segment_sum(torch.cat([flows[..., 2], flows[..., 3]], -1),
+                        k.bus_table)
         P = P + k.Gd * vm**2
         Q = Q - k.Bd * vm**2
         Pg = torch.zeros_like(P)
         Qg = torch.zeros_like(Q)
-        Pg[k.gen_bus] = pg                            # gen_bus is unique
-        Qg[k.gen_bus] = qg
-        return torch.cat([P - Pg + k.Pd, Q - Qg + k.Qd])
+        Pg[..., k.gen_bus] = pg                       # gen_bus is unique
+        Qg[..., k.gen_bus] = qg
+        return torch.cat([P - Pg + scale * k.Pd, Q - Qg + scale * k.Qd], -1)
 
-    def obj(x):
+    def obj_x(x):
         k = K.on(x.device)
         pg = split(x)[2]
-        return torch.sum(k.c2 * pg**2 + k.c1 * pg)
+        return torch.sum(k.c2 * pg**2 + k.c1 * pg, dim=-1)
 
-    def grad(x):
+    def grad_x(x):
         k = K.on(x.device)
         g = torch.zeros_like(x)
-        g[2 * nb:2 * nb + ng] = 2.0 * k.c2 * split(x)[2] + k.c1
+        g[..., 2 * nb:2 * nb + ng] = 2.0 * k.c2 * split(x)[2] + k.c1
         return g
 
     # ---- static sparse structure (as in the JAX package) -----------------
@@ -188,17 +200,18 @@ def build_sparse_from_instance(data: dict) -> SparseNLPModel:
 
     def jac_coords(x):
         k = K.on(x.device)
-        vm = x[nb:2 * nb]
+        lead = x.shape[:-1]
+        vm = x[..., nb:2 * nb]
         c, s, vmi, vmj, vv = edge_state(x, k)
         h, hp = _edge_terms(k.ge, k.be, c, s)
         # J_e[o, i] for outputs o = (p_i, p_j, q_i, q_j) and inputs
         # i = (va_i, va_j, vm_i, vm_j)
-        J_e = torch.stack([vv[:, None] * hp, -vv[:, None] * hp,
-                           vmj[:, None] * h, vmi[:, None] * h], dim=2)
+        J_e = torch.stack([vv[..., None] * hp, -vv[..., None] * hp,
+                           vmj[..., None] * h, vmi[..., None] * h], dim=-1)
         node_p = 2.0 * k.Gd * vm
         node_q = -2.0 * k.Bd * vm
-        gen = torch.full((2 * ng,), -1.0, dtype=x.dtype, device=x.device)
-        return torch.cat([J_e.reshape(-1), node_p, node_q, gen])
+        gen = x.new_full(lead + (2 * ng,), -1.0)
+        return torch.cat([J_e.reshape(lead + (-1,)), node_p, node_q, gen], -1)
 
     # hessian: per-edge 4×4 lower triangle (10 entries), node vm², gen pg²
     tril_i, tril_j = np.tril_indices(4)
@@ -211,21 +224,24 @@ def build_sparse_from_instance(data: dict) -> SparseNLPModel:
                                 nb + np.arange(nb), 2 * nb + np.arange(ng)])
 
     def hess_coords(x, y, obj_weight):
+        """``obj_weight``: a float, or ``(B, 1)`` for a batch."""
         k = K.on(x.device)
+        lead = x.shape[:-1]
         c, s, vmi, vmj, vv = edge_state(x, k)
         h, hp = _edge_terms(k.ge, k.be, c, s)
-        yP, yQ = y[:nb], y[nb:]
-        w4 = torch.stack([yP[k.ei], yP[k.ej], yQ[k.ei], yQ[k.ej]], dim=1)
-        H = (w4 * h).sum(dim=1)
-        Hp = (w4 * hp).sum(dim=1)
+        yP, yQ = y[..., :nb], y[..., nb:]
+        w4 = torch.stack([yP[..., k.ei], yP[..., k.ej], yQ[..., k.ei],
+                          yQ[..., k.ej]], dim=-1)
+        H = (w4 * h).sum(dim=-1)
+        Hp = (w4 * hp).sum(dim=-1)
         aa = -vv * H                                  # ∂²/∂va_i² (h'' = −h)
         zero = torch.zeros_like(H)
         # tril order (0,0) (1,0) (1,1) (2,0) (2,1) (2,2) (3,0) (3,1) (3,2) (3,3)
         vals_e = torch.stack([aa, -aa, aa, vmj * Hp, -vmj * Hp, zero,
-                              vmi * Hp, -vmi * Hp, H, zero], dim=1)
+                              vmi * Hp, -vmi * Hp, H, zero], dim=-1)
         node = 2.0 * (k.Gd * yP - k.Bd * yQ)
-        gen = 2.0 * obj_weight * k.c2
-        return torch.cat([vals_e.reshape(-1), node, gen])
+        gen = (2.0 * obj_weight * k.c2).expand(lead + (ng,))
+        return torch.cat([vals_e.reshape(lead + (-1,)), node, gen], -1)
 
     lvar = np.concatenate(
         [np.full(nb, -np.pi), np.full(nb, 0.9), np.zeros(ng), -qg_box]
@@ -236,6 +252,28 @@ def build_sparse_from_instance(data: dict) -> SparseNLPModel:
     lvar[0] = uvar[0] = 0.0
     x0 = np.concatenate([np.zeros(nb), np.ones(nb), pg0, qg0])
 
+    if parametric:
+        def cons(x, scale):
+            # (B,) scales against (B, m) rows; a 0-d scale broadcasts as is
+            return cons_scaled(x, scale[..., None] if scale.ndim else scale)
+
+        def obj(x, scale):
+            return obj_x(x)
+
+        def grad(x, scale):
+            return grad_x(x)
+
+        def jac_p(x, scale):
+            return jac_coords(x)
+
+        def hess_p(x, y, obj_weight, scale):
+            return hess_coords(x, y, obj_weight)
+    else:
+        def cons(x):
+            return cons_scaled(x, 1.0)
+
+        obj, grad, jac_p, hess_p = obj_x, grad_x, jac_coords, hess_coords
+
     return SparseNLPModel(
         n=n,
         m=m,
@@ -245,13 +283,14 @@ def build_sparse_from_instance(data: dict) -> SparseNLPModel:
         x0=x0,
         jac_rows=jac_rows,
         jac_cols=jac_cols,
-        jac_coords=jac_coords,
+        jac_coords=jac_p,
         hess_rows=hess_rows,
         hess_cols=hess_cols,
-        hess_coords=hess_coords,
+        hess_coords=hess_p,
         lvar=lvar,
         uvar=uvar,
         lcon=np.zeros(m),
         ucon=np.zeros(m),
+        params=np.ones(()) if parametric else None,
         name=f"synthetic_acopf_sparse_nb{nb}",
     )

@@ -13,6 +13,14 @@ torch tensors on the caller's device (float64):
 * ``jac_coords(x) -> (nnzj,)``;
 * ``hess_coords(x, y, obj_weight) -> (nnzh,)``.
 
+A *parametric* model (``params`` set to an example parameter array) takes
+the parameters as one more trailing argument of every callable:
+``obj(x, θ)``, ``cons(x, θ)``, ``grad(x, θ)``, ``jac_coords(x, θ)``,
+``hess_coords(x, y, obj_weight, θ)``.  ``MadNLPSolver.solve_batch``
+evaluates them on a batch: ``x (B, n)``, ``y (B, m)``, ``θ (B,)`` and an
+``obj_weight`` of shape ``(B, 1)``, so the callables must broadcast over
+one leading lane axis (as the instances of this package do).
+
 A model's constant data lives host-side in numpy and is materialised on a
 device the first time a callable sees a tensor there
 (:class:`DeviceConstants`), so one model serves both the CPU and the card.
@@ -65,10 +73,11 @@ class DeviceConstants:
 
 
 def _autograd_grad(obj):
-    def grad(x):
+    def grad(x, *params):
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(obj(xx), xx)
+            # the sum over lanes leaves each lane's gradient in its row
+            (g,) = torch.autograd.grad(obj(xx, *params).sum(), xx)
         return g.detach()
 
     return grad
@@ -97,6 +106,7 @@ class SparseNLPModel:
     grad: Optional[Callable] = None
     minimize: bool = True
     name: str = "generic-sparse"
+    params: object = None          # example parameters (parametric mode)
 
     def __post_init__(self):
         self.x0 = np.asarray(self.x0, dtype=np.float64)
@@ -119,3 +129,7 @@ class SparseNLPModel:
     @property
     def nnzh(self) -> int:
         return len(self.hess_rows)
+
+    @property
+    def is_parametric(self) -> bool:
+        return self.params is not None

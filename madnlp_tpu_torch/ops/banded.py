@@ -26,12 +26,19 @@ tensor on the CPU and launches the CUDA kernels for a tensor on the card.
 Assembly from COO values is deterministic: a host-sorted, padded
 contributor gather and a sum along the contributor axis
 (:class:`BandAssembly`), then one placement at unique slots.
+
+A batch of same-structure systems (``solve_batch``) carries a leading
+lane axis on every band, factor and right-hand side; the assembly, the
+operator and the scaling functions broadcast over it, and
+:func:`banded_factorize_batched` / :func:`banded_solve_batched` are the
+plain versions of the batched kernels K3 / K4, which factor and solve only
+the lanes an ``active`` mask selects.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -209,10 +216,12 @@ class BandAssembly:
                                      device=device)
 
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:
-        ext = torch.cat([vals, vals.new_ones((self.n_pad_ones,))])
-        flat = vals.new_zeros((self.flat_size,))
-        flat[self.slots] = segment_sum(ext, self.table)
-        return flat.view(self.shape)
+        """``vals (…, nnz)`` -> band ``(…, nbp, bw+1, b, b)``."""
+        lead = vals.shape[:-1]
+        ext = torch.cat([vals, vals.new_ones(lead + (self.n_pad_ones,))], -1)
+        flat = vals.new_zeros(lead + (self.flat_size,))
+        flat[..., self.slots] = segment_sum(ext, self.table)
+        return flat.view(lead + tuple(self.shape))
 
 
 # -- plain device functions ---------------------------------------------------
@@ -322,6 +331,44 @@ def solve_padded(band, invL, d, rhs):
     return rhs
 
 
+def factorize_columns_batched(band, invL, d, active, nb: int, b: int,
+                              bw: int):
+    """Plain version of the K3 kernel
+    (``banded_kernels.banded_factorize_batched_cuda``): K1's plain version
+    on each lane of ``band (B, nbp, bw+1, b, b)``, ``invL (B, nbp, b, b)``
+    and ``d (B, nb·b)`` whose ``active`` (B,) entry is true, in place;
+    inactive lanes are left untouched."""
+    for i in np.flatnonzero(np.asarray(active, dtype=bool)):
+        factorize_columns(band[i], invL[i], d[i], nb, b, bw)
+    return band, invL, d
+
+
+def solve_padded_batched(band, invL, d, rhs, active):
+    """Plain version of the K4 kernel
+    (``banded_kernels.banded_solve_batched_cuda``): K2's plain version on
+    each active lane of ``rhs (B, nbp·b, k)``, in place; inactive lanes
+    are left untouched."""
+    for i in np.flatnonzero(np.asarray(active, dtype=bool)):
+        solve_padded(band[i], invL[i], d[i], rhs[i])
+    return rhs
+
+
+def banded_factorize_batched(struct: BandStructure, band: torch.Tensor,
+                             active=None) -> BandedFactor:
+    """Plain batched factorization of ``band (B, nbp, bw+1, b, b)``: a
+    :class:`BandedFactor` with a leading lane axis (``d (B, nb·b)``).  The
+    input is not modified; inactive lanes come back as their input band
+    with ``invL = 0`` and ``d = 1``."""
+    B = band.shape[0]
+    b, nb = struct.b, struct.nb
+    active = np.ones(B, dtype=bool) if active is None else active
+    out = band.clone()
+    invL = band.new_zeros((B, struct.nbp, b, b))
+    d = band.new_ones((B, nb * b))
+    factorize_columns_batched(out, invL, d, active, nb, b, struct.bw)
+    return BandedFactor(band=out, invL=invL, d=d)
+
+
 def pad_rhs(struct: BandStructure, rhs: torch.Tensor) -> torch.Tensor:
     """(N,) or (N, k) permuted rhs -> zero-padded ``(nbp·b, k)``."""
     r = rhs[:, None] if rhs.ndim == 1 else rhs
@@ -336,70 +383,100 @@ def banded_solve(struct: BandStructure, f: BandedFactor, rhs: torch.Tensor):
     return x[:, 0] if rhs.ndim == 1 else x
 
 
-def banded_inertia(struct: BandStructure, f: BandedFactor) -> Tuple[int, int, int]:
-    """(pos, zero, neg) from the pivot signs, padding removed."""
+def pad_rhs_batched(struct: BandStructure, rhs: torch.Tensor) -> torch.Tensor:
+    """(B, N) or (B, N, k) permuted rhs -> zero-padded ``(B, nbp·b, k)``."""
+    r = rhs[..., None] if rhs.ndim == 2 else rhs
+    work = r.new_zeros((r.shape[0], struct.nbp * struct.b, r.shape[2]))
+    work[:, : struct.N] = r
+    return work
+
+
+def banded_solve_batched(struct: BandStructure, f: BandedFactor,
+                         rhs: torch.Tensor, active=None):
+    """Plain batched solve in PERMUTED coordinates; ``rhs`` (B, N) or
+    (B, N, k).  Inactive lanes return their right-hand side."""
+    active = np.ones(rhs.shape[0], dtype=bool) if active is None else active
+    work = pad_rhs_batched(struct, rhs)
+    solve_padded_batched(f.band, f.invL, f.d, work, active)
+    x = work[:, : struct.N]
+    return x[..., 0] if rhs.ndim == 2 else x
+
+
+def banded_inertia(struct: BandStructure, f: BandedFactor):
+    """(pos, zero, neg) from the pivot signs, padding removed; for a
+    batched factor (``d (B, nb·b)``) an int64 array ``(B, 3)``, read from
+    the device at once."""
     pad = struct.nb * struct.b - struct.N
     finite = torch.isfinite(f.d)
     pos_neg = torch.stack([
-        ((f.d > ZERO_PIVOT_TOL) & finite).sum(),
-        ((f.d < -ZERO_PIVOT_TOL) & finite).sum(),
-    ]).tolist()
-    pos = pos_neg[0] - pad
-    neg = pos_neg[1]
-    return pos, struct.N - pos - neg, neg
+        ((f.d > ZERO_PIVOT_TOL) & finite).sum(-1),
+        ((f.d < -ZERO_PIVOT_TOL) & finite).sum(-1),
+    ], -1).cpu().numpy()
+    pos = pos_neg[..., 0] - pad
+    neg = pos_neg[..., 1]
+    if f.d.ndim == 1:
+        return int(pos), int(struct.N - pos - neg), int(neg)
+    return np.stack([pos, struct.N - pos - neg, neg], -1)
 
 
 def banded_symmetrize(struct: BandStructure, band: torch.Tensor) -> torch.Tensor:
     """Complete the (lower-stored) diagonal blocks to full symmetric — the
     operator form consumed by :func:`banded_symv`."""
-    b0 = band[:, 0]
+    b0 = band[..., 0, :, :]
     eye = torch.eye(struct.b, dtype=band.dtype, device=band.device)
     out = band.clone()
-    out[:, 0] = b0 + b0.transpose(1, 2) * (1.0 - eye)
+    out[..., 0, :, :] = b0 + b0.transpose(-1, -2) * (1.0 - eye)
     return out
 
 
 def banded_symv(struct: BandStructure, band_sym: torch.Tensor, x: torch.Tensor):
     """Symmetric block-banded mat-vec ``y = K·x`` in PERMUTED coordinates:
     batched (nbp, b, b)×(nbp, b) products over the ``bw+1`` block
-    diagonals.  ``x``: (N,)."""
+    diagonals.  ``x``: (…, N)."""
     b, bw, nbp, N = struct.b, struct.bw, struct.nbp, struct.N
-    xb = x.new_zeros((nbp * b,))
-    xb[:N] = x
-    xb = xb.view(nbp, b)
-    y = torch.einsum("jab,jb->ja", band_sym[:, 0], xb)
+    lead = x.shape[:-1]
+    xb = x.new_zeros(lead + (nbp * b,))
+    xb[..., :N] = x
+    xb = xb.view(lead + (nbp, b))
+    y = torch.einsum("...jab,...jb->...ja", band_sym[..., 0, :, :], xb)
     for k in range(1, bw + 1):
         # block (j+k, j) · x_j, then block (j, j+k)ᵀ · x_{j+k}
-        y[k:] += torch.einsum("jab,jb->ja", band_sym[: nbp - k, k], xb[: nbp - k])
-        y[: nbp - k] += torch.einsum("jba,jb->ja", band_sym[: nbp - k, k], xb[k:])
-    return y.reshape(-1)[:N]
+        blk = band_sym[..., : nbp - k, k, :, :]
+        y[..., k:, :] += torch.einsum("...jab,...jb->...ja", blk,
+                                      xb[..., : nbp - k, :])
+        y[..., : nbp - k, :] += torch.einsum("...jba,...jb->...ja", blk,
+                                             xb[..., k:, :])
+    return y.reshape(lead + (-1,))[..., :N]
 
 
 def ruiz_band(struct: BandStructure, band_sym: torch.Tensor, sweeps: int = 3):
     """Ruiz equilibration computed directly on the (symmetrized) band.
-    Returns the scaling in PERMUTED block layout, shape (nbp, b).
+    Returns the scaling in PERMUTED block layout, shape (…, nbp, b).
     Structurally-zero rows keep d = 1 (iterating d ← d/√(row-norm) on a
     zero row diverges)."""
     b, bw, nbp = struct.b, struct.bw, struct.nbp
-    d = band_sym.new_ones((nbp, b))
+    d = band_sym.new_ones(band_sym.shape[:-4] + (nbp, b))
     absb = band_sym.abs()
     for _ in range(sweeps):
-        rn = (absb[:, 0] * d[:, :, None] * d[:, None, :]).amax(dim=2)
+        rn = (absb[..., 0, :, :] * d[..., :, :, None]
+              * d[..., :, None, :]).amax(dim=-1)
         for k in range(1, bw + 1):
-            ak = absb[: nbp - k, k] * d[k:, :, None] * d[: nbp - k, None, :]
-            rn[k:] = torch.maximum(rn[k:], ak.amax(dim=2))
-            rn[: nbp - k] = torch.maximum(rn[: nbp - k], ak.amax(dim=1))
+            ak = (absb[..., : nbp - k, k, :, :] * d[..., k:, :, None]
+                  * d[..., : nbp - k, None, :])
+            rn[..., k:, :] = torch.maximum(rn[..., k:, :], ak.amax(dim=-1))
+            rn[..., : nbp - k, :] = torch.maximum(rn[..., : nbp - k, :],
+                                                  ak.amax(dim=-2))
         d = torch.where(rn > 0.0, d / torch.sqrt(torch.clamp_min(rn, 1e-32)), 1.0)
     return d
 
 
 def scale_band(struct: BandStructure, band: torch.Tensor, d: torch.Tensor):
     """Congruence scaling D·K·D applied to (lower-stored) band storage;
-    ``d``: (nbp, b) permuted scaling from :func:`ruiz_band`."""
+    ``d``: (…, nbp, b) permuted scaling from :func:`ruiz_band`."""
     b, bw, nbp = struct.b, struct.bw, struct.nbp
-    dpad = torch.cat([d, d.new_ones((bw, b))], dim=0)
+    dpad = torch.cat([d, d.new_ones(d.shape[:-2] + (bw, b))], dim=-2)
     return torch.stack(
-        [band[:, k] * dpad[k:k + nbp, :, None] * d[:, None, :]
-         for k in range(bw + 1)],
-        dim=1,
+        [band[..., k, :, :] * dpad[..., k:k + nbp, :, None]
+         * d[..., :, None, :] for k in range(bw + 1)],
+        dim=-3,
     )

@@ -3,19 +3,26 @@
 * K1 :func:`banded_factorize_cuda` replaces
   ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_factorize_kernel``;
 * K2 :func:`banded_solve_cuda` replaces
-  ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_kernel``.
+  ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_kernel``;
+* K3 :func:`banded_factorize_batched_cuda` replaces
+  ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_factorize_call_batched``;
+* K4 :func:`banded_solve_batched_cuda` replaces
+  ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_call_batched``.
 
-Both are CUDA C++ for ``sm_90a`` in ``csrc/banded_ldlt.cu``, compiled by
-``nvcc`` into ``build/kernels/`` at first use and loaded with ``ctypes``.
-Each wrapper checks device, dtype, shape and contiguity, allocates the
-scratch it needs with ``torch.empty``, launches on the current stream,
-raises if the C entry returns a CUDA error, and counts its launches in its
+All four are CUDA C++ for ``sm_90a`` in ``csrc/banded_ldlt.cu`` (K3 and K4
+run K1's and K2's kernel bodies with a lane index), compiled by ``nvcc``
+into ``build/kernels/`` at first use and loaded with ``ctypes``.  Each
+wrapper checks device, dtype, shape and contiguity, allocates the scratch
+it needs with ``torch.empty``, launches on the current stream, raises if
+the C entry returns a CUDA error, and counts its launches in its
 ``launches`` attribute.
 
-:func:`factorize` and :func:`solve` are what the KKT system calls: for a
-tensor on the card they launch the kernels (or raise), for a tensor on the
-CPU they run the plain versions of :mod:`.banded`.  Nothing here is
-imported or built until a CUDA tensor arrives.
+:func:`factorize` / :func:`solve` (one system) and
+:func:`factorize_batched` / :func:`solve_batched` (a batch of lanes under
+an ``active`` mask) are what the KKT system calls: for a tensor on the
+card they launch the kernels (or raise), for a tensor on the CPU they run
+the plain versions of :mod:`.banded`.  Nothing here is imported or built
+until a CUDA tensor arrives.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import shutil
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
 from . import banded as plain
@@ -88,6 +96,15 @@ def load():
         for name in ("banded_solve_f32", "banded_solve_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            fn.restype = ci
+        for name in ("banded_factorize_batched_f32",
+                     "banded_factorize_batched_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            fn.restype = ci
+        for name in ("banded_solve_batched_f32", "banded_solve_batched_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
         _lib = lib
     return _lib
@@ -174,9 +191,95 @@ def banded_solve_cuda(band, invL, d, rhs):
 banded_solve_cuda.launches = 0
 
 
+def _active_mask(active, lanes: int, device) -> torch.Tensor:
+    """The lane mask (numpy bool (B,)) as the kernels read it: int32 (B,)
+    on the card."""
+    mask = torch.as_tensor(np.asarray(active, dtype=np.int32), device=device)
+    if tuple(mask.shape) != (lanes,):
+        raise ValueError(f"active has shape {tuple(mask.shape)}, "
+                         f"expected ({lanes},)")
+    return mask.contiguous()
+
+
+def banded_factorize_batched_cuda(band, invL, d, active, nb: int, b: int,
+                                  bw: int):
+    """K3: K1 on every lane of ``band (B, nb+bw, bw+1, b, b)`` whose
+    ``active`` (B,) entry is nonzero, in place, writing ``invL (B, nb+bw,
+    b, b)`` and ``d (B, nb·b)``; inactive lanes are left untouched.
+    ``active``: a numpy bool array (B,)."""
+    if b not in SUPPORTED_BLOCKS:
+        raise ValueError(f"block size {b} not in {SUPPORTED_BLOCKS}")
+    if not band.is_cuda:
+        raise ValueError("banded_factorize_batched_cuda needs CUDA tensors")
+    if band.dtype not in _SUFFIX:
+        raise TypeError(f"unsupported dtype {band.dtype}")
+    B, nbp = band.shape[0], nb + bw
+    _check("band", band, (B, nbp, bw + 1, b, b), band.dtype, band.device)
+    _check("invL", invL, (B, nbp, b, b), band.dtype, band.device)
+    _check("d", d, (B, nb * b), band.dtype, band.device)
+    mask = _active_mask(active, B, band.device)
+    xbuf = torch.empty((B, bw * b, b), dtype=band.dtype, device=band.device)
+    fn = getattr(load(), "banded_factorize_batched_" + _SUFFIX[band.dtype])
+    with torch.cuda.device(band.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(band.data_ptr(), invL.data_ptr(), d.data_ptr(),
+                 xbuf.data_ptr(), mask.data_ptr(), B, nb, b, bw, stream)
+    banded_factorize_batched_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"banded_factorize_batched_cuda: CUDA error {err}")
+    return band, invL, d
+
+
+banded_factorize_batched_cuda.launches = 0
+
+
+def banded_solve_batched_cuda(band, invL, d, rhs, active):
+    """K4: K2 on every active lane of ``rhs (B, (nb+bw)·b, k)`` (permuted,
+    zero padded) with the factor from :func:`banded_factorize_batched_cuda`,
+    in place; inactive lanes are left untouched."""
+    if not band.is_cuda:
+        raise ValueError("banded_solve_batched_cuda needs CUDA tensors")
+    if band.dtype not in _SUFFIX:
+        raise TypeError(f"unsupported dtype {band.dtype}")
+    if band.ndim != 5 or rhs.ndim != 3:
+        raise ValueError("band must be (B, nb+bw, bw+1, b, b) and rhs "
+                         "(B, (nb+bw)·b, k)")
+    B, nbp, bw1, b, _ = band.shape
+    bw = bw1 - 1
+    nb = nbp - bw
+    if b not in SUPPORTED_BLOCKS:
+        raise ValueError(f"block size {b} not in {SUPPORTED_BLOCKS}")
+    _check("band", band, (B, nbp, bw1, b, b), band.dtype, band.device)
+    _check("invL", invL, (B, nbp, b, b), band.dtype, band.device)
+    _check("d", d, (B, nb * b), band.dtype, band.device)
+    _check("rhs", rhs, (B, nbp * b, rhs.shape[2]), band.dtype, band.device)
+    mask = _active_mask(active, B, band.device)
+    fn = getattr(load(), "banded_solve_batched_" + _SUFFIX[band.dtype])
+    with torch.cuda.device(band.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(band.data_ptr(), invL.data_ptr(), d.data_ptr(),
+                 rhs.data_ptr(), mask.data_ptr(), B, nb, b, bw, rhs.shape[2],
+                 stream)
+    banded_solve_batched_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"banded_solve_batched_cuda: CUDA error {err}")
+    return rhs
+
+
+banded_solve_batched_cuda.launches = 0
+
+KERNELS = (banded_factorize_cuda, banded_solve_cuda,
+           banded_factorize_batched_cuda, banded_solve_batched_cuda)
+
+
 def reset_counts():
-    banded_factorize_cuda.launches = 0
-    banded_solve_cuda.launches = 0
+    for k in KERNELS:
+        k.launches = 0
+
+
+def counts() -> dict:
+    """Launches of each kernel since the last :func:`reset_counts`."""
+    return {k.__name__: k.launches for k in KERNELS}
 
 
 # -- the solver's entry points: the device picks the backend --------------
@@ -211,3 +314,31 @@ def solve(struct: BandStructure, f: BandedFactor, rhs: torch.Tensor):
     banded_solve_cuda(f.band, f.invL, f.d, work)
     x = work[: struct.N]
     return x[:, 0] if rhs.ndim == 1 else x
+
+
+def factorize_batched(struct: BandStructure, band: torch.Tensor,
+                      invL: torch.Tensor, d: torch.Tensor,
+                      active) -> BandedFactor:
+    """Batched block-banded LDLᵀ, in place: the lanes of ``band (B, nbp,
+    bw+1, b, b)`` that ``active`` (numpy bool (B,)) selects are factored
+    into ``band``, ``invL (B, nbp, b, b)`` and ``d (B, nb·b)``; the other
+    lanes keep what the three tensors held."""
+    if _route(band) == "plain":
+        plain.factorize_columns_batched(band, invL, d, active, struct.nb,
+                                        struct.b, struct.bw)
+    else:
+        banded_factorize_batched_cuda(band, invL, d, active, struct.nb,
+                                      struct.b, struct.bw)
+    return BandedFactor(band=band, invL=invL, d=d)
+
+
+def solve_batched(struct: BandStructure, f: BandedFactor, rhs: torch.Tensor,
+                  active):
+    """Batched solve in PERMUTED coordinates; ``rhs``: (B, N) or (B, N, k).
+    Lanes that ``active`` leaves out return their right-hand side."""
+    if _route(rhs) == "plain":
+        return plain.banded_solve_batched(struct, f, rhs, active)
+    work = plain.pad_rhs_batched(struct, rhs)
+    banded_solve_batched_cuda(f.band, f.invL, f.d, work, active)
+    x = work[:, : struct.N]
+    return x[..., 0] if rhs.ndim == 2 else x

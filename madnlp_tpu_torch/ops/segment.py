@@ -6,7 +6,8 @@ with duplicate targets sums by atomics in a varying order, so two runs of
 the same solve would differ in the last bits.  Here every segment sum is a
 gather into a padded ``(n_out, K)`` contributor table, built once on the
 host, followed by a sum along the contributor axis — the same order on every
-run, on every device.
+run, on every device.  Values may carry leading (lane) axes: the segments
+run over the last axis.
 """
 
 from __future__ import annotations
@@ -33,12 +34,13 @@ def segment_map(targets: np.ndarray, n_out: int) -> np.ndarray:
 
 
 def segment_sum(vals: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``out[t] = Σ vals[i]`` over ``targets[i] == t`` (zero if none)."""
-    ext = torch.cat([vals, vals.new_zeros((1,))])
-    return ext[table].sum(dim=1)
+    """``out[..., t] = Σ vals[..., i]`` over ``targets[i] == t`` (zero if
+    none)."""
+    ext = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], dim=-1)
+    return ext[..., table].sum(dim=-1)
 
 
 def segment_max(vals: torch.Tensor, table: torch.Tensor, fill: float):
-    """``out[t] = max(fill, max vals[i] over targets[i] == t)``."""
-    ext = torch.cat([vals, vals.new_full((1,), fill)])
-    return torch.clamp_min(ext[table].amax(dim=1), fill)
+    """``out[..., t] = max(fill, max vals[..., i] over targets[i] == t)``."""
+    ext = torch.cat([vals, vals.new_full(vals.shape[:-1] + (1,), fill)], dim=-1)
+    return torch.clamp_min(ext[..., table].amax(dim=-1), fill)

@@ -1,5 +1,7 @@
 """The Hopper kernels of the port (madnlp_tpu_torch/csrc/banded_ldlt.cu)
-against their plain PyTorch versions, on the card.
+against their plain PyTorch versions, on the card: K1/K2 (one system) and
+K3/K4 (a batch of lanes under an active mask, also held against K1/K2 on
+each lane).
 
 Run on a machine with an NVIDIA GPU and nvcc (``--noconftest`` skips
 tests/conftest.py, which imports JAX):
@@ -46,6 +48,22 @@ def _system(seed, nb, b, bw, dtype):
 def _rel(a, ref):
     a, ref = a.double(), ref.double()
     return float((a - ref).abs().max() / ref.abs().max())
+
+
+def _lanes(nb, b, bw, dtype, zero_lane=1, lanes=3):
+    """A batch of seeded band systems of one geometry on the card; lane
+    ``zero_lane`` carries an exactly zero pivot."""
+    N = nb * b - b // 2
+    bands = []
+    for i in range(lanes):
+        rows, cols, vals = band_system(10 * i + b + bw + nb, N, b, bw,
+                                       zero_row=N // 2 if i == zero_lane
+                                       else None)
+        st = plain.BandStructure(rows, cols, N, block=b, perm=np.arange(N))
+        assert (st.b, st.bw, st.nb) == (b, bw, nb)
+        bands.append(st.assembly(st.map(rows, cols), "cpu")(
+            torch.as_tensor(vals)))
+    return st, torch.stack(bands).to(dtype).cuda()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -102,3 +120,87 @@ def test_solve_on_the_card_matches_the_cpu():
     # one more than the counter: the least-squares dual initialization
     assert bk.banded_factorize_cuda.launches == gpu.counters["factorization_cnt"] + 1
     assert bk.banded_solve_cuda.launches >= gpu.counters["backsolve_cnt"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb", [(256, 2, 11), (128, 3, 5), (64, 1, 6),
+                                     (32, 2, 9)])
+def test_batched_kernels_match_plain_and_the_single_kernels(b, bw, nb, dtype):
+    _need_cuda()
+    st, band = _lanes(nb, b, bw, dtype)
+    B = band.shape[0]
+    active = np.ones(B, dtype=bool)
+    before = (bk.banded_factorize_batched_cuda.launches,
+              bk.banded_solve_batched_cuda.launches)
+    kf = bk.factorize_batched(
+        st, band.clone(), torch.zeros((B, st.nbp, b, b), dtype=dtype,
+                                      device="cuda"),
+        torch.ones((B, nb * b), dtype=dtype, device="cuda"), active)
+    pf = plain.banded_factorize_batched(st, band)
+    rhs = torch.randn(B, st.N, 2, dtype=dtype, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    kx = bk.solve_batched(st, kf, rhs, active)
+    px = plain.banded_solve_batched(st, kf, rhs)
+    torch.cuda.synchronize()
+    assert (bk.banded_factorize_batched_cuda.launches,
+            bk.banded_solve_batched_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for k, p in ((kf.band[:, :nb], pf.band[:, :nb]),
+                 (kf.invL[:, :nb], pf.invL[:, :nb]), (kf.d, pf.d), (kx, px)):
+        assert _rel(k, p) < RTOL[dtype]
+    inertia = plain.banded_inertia(st, kf)
+    assert (inertia == plain.banded_inertia(st, pf)).all()
+    assert inertia[1, 1] == 1
+    # each lane against the single-system kernels K1 / K2
+    for i in range(B):
+        f1 = bk.factorize(st, band[i].clone())
+        x1 = bk.solve(st, f1, rhs[i])
+        torch.cuda.synchronize()
+        assert _rel(kf.band[i, :nb], f1.band[:nb]) < RTOL[dtype]
+        assert _rel(kf.d[i], f1.d) < RTOL[dtype]
+        assert _rel(kx[i], x1) < RTOL[dtype]
+        assert tuple(inertia[i]) == plain.banded_inertia(st, f1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_kernels_leave_inactive_lanes_untouched(dtype):
+    _need_cuda()
+    st, band = _lanes(11, 256, 2, dtype)
+    B, b, nb = band.shape[0], st.b, st.nb
+    work = band.clone()
+    invL = torch.full((B, st.nbp, b, b), 7.0, dtype=dtype, device="cuda")
+    d = torch.full((B, nb * b), 3.0, dtype=dtype, device="cuda")
+    active = np.array([False, True, True])
+    f = bk.factorize_batched(st, work, invL, d, active)
+    rhs = torch.randn(B, st.nbp * b, 1, dtype=dtype, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(2))
+    r = rhs.clone()
+    bk.banded_solve_batched_cuda(f.band, f.invL, f.d, r, active)
+    torch.cuda.synchronize()
+    assert torch.equal(f.band[0], band[0])
+    assert (f.invL[0] == 7.0).all() and (f.d[0] == 3.0).all()
+    assert torch.equal(r[0], rhs[0])
+    full = plain.banded_factorize_batched(st, band)
+    assert _rel(f.band[1:, :nb], full.band[1:, :nb]) < RTOL[dtype]
+
+
+def test_solve_batch_on_the_card_matches_the_cpu():
+    _need_cuda()
+    opts = dict(linear_solver=T.LinearSolver.BANDED, dtype="float64",
+                print_level=T.PrintLevel.ERROR)
+    scales = [0.95, 1.0, 1.05]
+    model = opf.build_sparse(nb=40, seed=2, parametric=True)
+    cpu_solver = T.MadNLPSolver(model, device="cpu", **opts)
+    cpu = T.batch_summary(cpu_solver.prob, cpu_solver.solve_batch(scales))
+    gpu_solver = T.MadNLPSolver(model, **opts)
+    bk.reset_counts()
+    gpu = T.batch_summary(gpu_solver.prob, gpu_solver.solve_batch(scales))
+    counts = bk.counts()
+    assert (gpu["status"] == cpu["status"]).all()
+    assert (gpu["iter"] == cpu["iter"]).all()
+    assert (gpu["counters"]["factorization_cnt"]
+            == cpu["counters"]["factorization_cnt"]).all()
+    np.testing.assert_allclose(gpu["objective"], cpu["objective"], rtol=1e-8)
+    assert counts["banded_factorize_batched_cuda"] > 0
+    assert counts["banded_solve_batched_cuda"] > 0
+    assert counts["banded_factorize_cuda"] == counts["banded_solve_cuda"] == 0
