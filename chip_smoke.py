@@ -9,7 +9,8 @@ Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero without a result):
 
 1. ``device``  — CUDA must be available; the card's name and power limit.
-2. ``build``   — nvcc builds ``madnlp_tpu_torch/csrc/banded_ldlt.cu``.
+2. ``build``   — nvcc builds ``madnlp_tpu_torch/csrc/banded_ldlt.cu`` and
+   ``madnlp_tpu_torch/csrc/dense_ldlt.cu``, one process each, side by side.
 3. ``kernels`` — the banded LDLᵀ kernels K1 (factorize) and K2 (solve)
    against their plain PyTorch versions on the card, float32 and float64,
    on strictly diagonally dominant indefinite band matrices made by numpy
@@ -48,6 +49,33 @@ script exits non-zero without a result):
    band of every lane (float64), then timed against 16 sequential K1 / K2
    launches on the same bands; one bulk run under torch.profiler.
 
+6. ``dense_kernels`` — the whole-matrix dense LDLᵀ kernel K7 against its
+   plain PyTorch version on the card, float32 and float64, block 128, at
+   N = 128, 300, 1024 and 2674 (the dense nb=600 system), on an indefinite
+   saddle matrix and on one with an exactly zero pivot: the factor's
+   relative error on the real rows within 1e-4 (float32) and 1e-10
+   (float64), the inertia equal, the zero pivot counted.
+7. ``dense_solve`` — the dense-callback path: ``madnlp(opf.build(nb=600,
+   seed=0))`` with default options (condensed dense KKT, blocked LDLᵀ,
+   block 128) in float64 and float32, each against the JAX package's CPU
+   results (``DENSE_REFERENCE``; float32 counts against the spread that
+   rounding alone produces, ``DENSE_FLOAT32_SPREAD``), with every
+   kernel's launch count over each solve (the dense path runs no kernel of
+   its own: the JAX package's dense LDLᵀ is XLA code, and so is the
+   port's); the float32 solve repeated, bit for bit;
+   ``TIMED_DENSE_SOLVES`` more float32 solves for the median iter/s; the
+   first ``PROFILED_DENSE_ITERS`` iterations of one more under
+   torch.profiler.
+8. ``dense_main_matrix`` — the last Ruiz-scaled condensed matrix of the
+   float32 solve through K7 (its op path: counts set to 0 just before, one
+   launch read just after), through the plain version and through the
+   port's ``ldlt_factorize`` on the card: their agreement and inertia, K7's
+   time by CUDA events beside its bound, the plain version's and
+   ``ldlt_factorize``'s times, the torch launches of one ``ldlt_factorize``,
+   and ``torch.linalg.cholesky`` of an SPD matrix of the same size as
+   context (a different function: no PyTorch call computes an unpivoted
+   LDLᵀ).
+
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
 """
@@ -58,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -133,6 +162,37 @@ BACKSOLVE_LANE_RTOL = 0.15
 BATCH_LANES = 3          # lanes of the batched kernel checks
 TIMED_BATCHES = 3
 
+# The dense-callback path: the JAX package's default solve of the dense
+# nb=600 ACOPF on the CPU, (status, iterations, factorization_cnt,
+# backsolve_cnt, objective), from
+#   JAX_PLATFORMS=cpu python -c 'import madnlp_tpu as M; from madnlp_tpu.models.instances import opf;
+#   s = M.madnlp(opf.build(nb=600, seed=0), dtype=DT); print(s.status.name, s.iter,
+#   s.counters["factorization_cnt"], s.counters["backsolve_cnt"], repr(s.objective))'
+# float64 is held to them exactly (backsolves within BACKSOLVE_RTOL).
+DENSE_REFERENCE = {
+    "float64": ("SOLVE_SUCCEEDED", 25, 25, 27, 583.7230018594353),
+    "float32": ("SOLVE_SUCCEEDED", 25, 28, 137, 583.7230018594353),
+}
+# float32 counts are a property of the rounding, not of the algorithm: the
+# port's CPU solve with every factorized matrix perturbed by one float32 ulp
+# of seeded noise takes 25-26 iterations, 27-30 factorizations and 127-158
+# backsolves (6 runs, tests/test_torch_refine_stall.py:dense_float32_spread),
+# where refinement stalls on near-singular pivots send the δ ladder up a
+# step or not.  The float32 solve on the card is held to that spread and to
+# the JAX package's status and objective; its counts stand beside JAX's.
+DENSE_FLOAT32_SPREAD = {"iter": (25, 26), "factorization_cnt": (27, 30),
+                        "backsolve_cnt": (127, 158)}
+DENSE_BLOCK = 128
+# K7 against its plain version: N = one block, a padded tail, the TPU
+# kernel's VMEM limit, and the dense nb=600 system (2674 -> 2688 padded)
+DENSE_SIZES = (128, 300, 1024, 2674)
+# K7 vs plain vs ldlt_factorize on the solve's own (Ruiz-scaled,
+# ill-conditioned) matrix, in float64: rounding is amplified by the
+# condition number, as on the banded path's main band
+DENSE_MAIN_RTOL = 1e-6
+TIMED_DENSE_SOLVES = 3
+PROFILED_DENSE_ITERS = 3   # iterations of the dense solve under the profiler
+
 
 def emit(obj):
     print(json.dumps(obj, default=_plain), flush=True)
@@ -175,11 +235,18 @@ def phase_device(torch):
 
 def phase_build():
     from madnlp_tpu_torch.ops import banded_kernels as bk
+    from madnlp_tpu_torch.ops import dense_kernels as dk
 
     t = time.perf_counter()
-    path = bk.build(force=True, ptxas_info=True)
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(m.build, force=True, ptxas_info=True)
+                   for m in (bk, dk)]
+        paths = [f.result() for f in futures]
     bk.load()
-    emit({"phase": "build", "library": os.path.relpath(path, HERE),
+    dk.load()
+    emit({"phase": "build",
+          "libraries": [os.path.relpath(p, HERE) for p in paths],
           "seconds": time.perf_counter() - t})
 
 
@@ -841,6 +908,285 @@ def phase_batch(torch, port, single_iter_per_s):
             "times": times, "bounds": bounds}
 
 
+# -- 6. the dense LDLᵀ kernel K7 on seeded matrices ----------------------------
+
+
+def _saddle(torch, N, seed, zero_row=None):
+    """A seeded indefinite saddle matrix [[H, Jᵀ], [J, -1e-3·I]] (H SPD,
+    m = N/4 rows) in float64 on the card; ``zero_row`` zeroes one row and
+    column, which makes that pivot exactly zero."""
+    rng = np.random.default_rng(seed)
+    m = N // 4
+    R = torch.as_tensor(rng.standard_normal((N - m, N - m)), device="cuda")
+    J = torch.as_tensor(rng.standard_normal((m, N - m)), device="cuda")
+    H = R @ R.T + N * torch.eye(N - m, dtype=torch.float64, device="cuda")
+    K = torch.cat([torch.cat([H, J.T], 1),
+                   torch.cat([J, -1e-3 * torch.eye(m, dtype=torch.float64,
+                                                   device="cuda")], 1)])
+    if zero_row is not None:
+        K[zero_row, :] = 0.0
+        K[:, zero_row] = 0.0
+    return K
+
+
+def _factor_errors(torch, f, ref):
+    """Relative and absolute differences of two LDL factors on the real
+    rows (strict lower L and D)."""
+    n = ref.n
+    pairs = {"L": (torch.tril(f.L[:n, :n], -1), torch.tril(ref.L[:n, :n], -1)),
+             "d": (f.d[:n], ref.d[:n])}
+    return ({k: _rel(*v) for k, v in pairs.items()},
+            {k: _abs(*v) for k, v in pairs.items()})
+
+
+def phase_dense_kernels(torch):
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+    from madnlp_tpu_torch.ops.ldlt import ldlt_inertia
+
+    worst = 0.0
+    for N in DENSE_SIZES:
+        for dtype_name in ("float32", "float64"):
+            tol = KERNEL_RTOL[dtype_name]
+            for zero_row in (None, N // 3):
+                K = _saddle(torch, N, N + 1, zero_row).to(getattr(torch, dtype_name))
+                kf = dk.dense_ldlt(K, DENSE_BLOCK)
+                pf = dk.dense_ldlt_plain(K, DENSE_BLOCK)
+                torch.cuda.synchronize()
+                rel, ab = _factor_errors(torch, kf, pf)
+                inertia = (ldlt_inertia(kf), ldlt_inertia(pf))
+                m = N // 4
+                expect = ((N - m, 0, m) if zero_row is None
+                          else (N - m - 1, 1, m))
+                emit({"phase": "dense_kernels", "N": N, "block": DENSE_BLOCK,
+                      "dtype": dtype_name, "zero_row": zero_row,
+                      "max_rel_err": rel, "tol": tol,
+                      "inertia_kernel": inertia[0], "inertia_plain": inertia[1]})
+                if not (torch.isfinite(kf.L).all() and torch.isfinite(kf.d).all()):
+                    raise AssertionError("non-finite K7 output")
+                if max(rel.values()) > tol:
+                    raise AssertionError(f"K7 disagrees with plain at "
+                                         f"{(N, dtype_name, zero_row)}")
+                if inertia[0] != inertia[1] or inertia[0] != expect:
+                    raise AssertionError(f"K7 inertia {inertia}, expected {expect}")
+                if N == DENSE_SIZES[-1] and dtype_name == "float32":
+                    worst = max(worst, max(ab.values()))
+    return worst
+
+
+# -- 7. the dense-callback solve -----------------------------------------------
+
+
+def _dense_solve(torch, port, dtype, keep=None, max_iter=None):
+    """``madnlp``'s path with default options on the dense nb=600 ACOPF
+    (model and set-up excluded from the wall; ``max_iter`` cuts it short).
+    ``keep`` collects the last matrix the solve factorized.  Returns
+    (stats, wall, kernel counts, resolved options)."""
+    from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+    from madnlp_tpu_torch.ops import dense_solvers as ds
+
+    cut = {} if max_iter is None else {"max_iter": max_iter}
+    solver = port.MadNLPSolver(opf.build(nb=600, seed=0), device="cuda",
+                               dtype=dtype, print_level=port.PrintLevel.ERROR,
+                               **cut)
+    factorize = ds.factorize
+    if keep is not None:
+        def keeping(K, *args, **kwargs):
+            keep["K"] = K.clone()
+            return factorize(K, *args, **kwargs)
+        ds.factorize = keeping
+    torch.cuda.synchronize()
+    bk.reset_counts()
+    dk.reset_counts()
+    t = time.perf_counter()
+    try:
+        stats = solver.solve()
+        torch.cuda.synchronize()
+    finally:
+        ds.factorize = factorize
+    wall = time.perf_counter() - t
+    return stats, wall, {**bk.counts(), **dk.counts()}, solver.opts
+
+
+def _check_dense(stats, dtype, counts, opts):
+    status, iters, facts, backs, obj = DENSE_REFERENCE[dtype]
+    c = stats.counters
+    if stats.status.name != status:
+        raise AssertionError(f"dense {dtype}: status {stats.status.name}")
+    if abs(stats.objective - obj) > OBJ_RTOL * abs(obj):
+        raise AssertionError(f"dense {dtype}: objective {stats.objective!r}, "
+                             f"JAX {obj!r}")
+    got = {"iter": stats.iter, "factorization_cnt": c["factorization_cnt"],
+           "backsolve_cnt": c["backsolve_cnt"]}
+    if dtype == "float32":
+        bad = {k: v for k, v in got.items()
+               if not DENSE_FLOAT32_SPREAD[k][0] <= v <= DENSE_FLOAT32_SPREAD[k][1]}
+    else:
+        bad = {k: v for k, v in got.items() if k != "backsolve_cnt"
+               and v != {"iter": iters, "factorization_cnt": facts}[k]}
+        if abs(got["backsolve_cnt"] - backs) > BACKSOLVE_RTOL * backs:
+            bad["backsolve_cnt"] = got["backsolve_cnt"]
+    if bad:
+        raise AssertionError(f"dense {dtype}: {bad}; JAX {DENSE_REFERENCE[dtype]}")
+    if not np.isfinite(stats.solution).all():
+        raise AssertionError(f"dense {dtype}: non-finite solution")
+    if (opts.kkt_system.name, opts.linear_solver.name, opts.ldl_block_size) \
+            != ("DENSE_CONDENSED", "LDL", DENSE_BLOCK):
+        raise AssertionError(f"dense {dtype}: preset {opts.kkt_system}, "
+                             f"{opts.linear_solver}, {opts.ldl_block_size}")
+    # the path factors with ldlt_factorize (XLA code in the JAX package),
+    # so no kernel of the port runs on it
+    if any(counts.values()):
+        raise AssertionError(f"dense {dtype}: kernels launched: {counts}")
+
+
+def phase_dense_solve(torch, port):
+    out = {}
+    for dtype in ("float64", "float32"):
+        stats, wall, counts, opts = _dense_solve(torch, port, dtype)
+        _check_dense(stats, dtype, counts, opts)
+        emit({"phase": "dense_solve", "dtype": dtype,
+              "status": stats.status.name, "iter": stats.iter,
+              "objective": stats.objective,
+              "reference": DENSE_REFERENCE[dtype], "counters": stats.counters,
+              "launches": counts, "wall_s": wall,
+              "iter_per_s": stats.iter / wall})
+        out[dtype] = stats
+    first = out["float32"]
+
+    kept = {}
+    again, wall2, _, _ = _dense_solve(torch, port, "float32", keep=kept)
+    same = (again.objective == first.objective
+            and np.array_equal(again.solution, first.solution)
+            and np.array_equal(again.multipliers, first.multipliers)
+            and again.counters == first.counters)
+    emit({"phase": "dense_solve", "dtype": "float32", "repeat": True,
+          "bit_identical": same, "wall_s": wall2})
+    if not same:
+        raise AssertionError("the repeated dense float32 solve differs")
+
+    walls = []
+    for _ in range(TIMED_DENSE_SOLVES):
+        again, w, _, _ = _dense_solve(torch, port, "float32")
+        if not (again.objective == first.objective
+                and np.array_equal(again.solution, first.solution)
+                and again.counters == first.counters):
+            raise AssertionError("a timed dense float32 solve differs")
+        walls.append(w)
+    med = statistics.median(walls)
+    emit({"phase": "dense_solve", "dtype": "float32",
+          "timed_solves": TIMED_DENSE_SOLVES, "wall_s": walls,
+          "median_wall_s": med, "iter_per_s_median": first.iter / med,
+          "iter_per_s_min": first.iter / max(walls),
+          "iter_per_s_max": first.iter / min(walls)})
+
+    # a short steady window: the dense solve launches some 20,000 small
+    # kernels per factorization, too many events to trace a whole solve
+    window = {}
+
+    def profiled():
+        stats, wall, _, _ = _dense_solve(torch, port, "float32",
+                                         max_iter=PROFILED_DENSE_ITERS)
+        window["factorizations"] = stats.counters["factorization_cnt"]
+        return stats.iter, wall
+    prof = _profile(torch, port, profiled)
+    # +1: the least-squares dual initialization factorizes once, uncounted
+    prof["device_launches_per_factorization"] = (
+        prof["device_launches"] / (window["factorizations"] + 1))
+    emit(dict(phase="dense_profile", dtype="float32",
+              factorizations=window["factorizations"], **prof))
+    return {"iter_per_s_median": first.iter / med, "K": kept["K"]}
+
+
+# -- 8. K7 on the dense solve's own matrix --------------------------------------
+
+
+def _dense_bound(np_, itemsize, dtype):
+    """Least time (ms) of a whole-matrix LDLᵀ of the padded Np×Np matrix:
+    Np³/3 flops at the card's peak outside the tensor cores, the matrix
+    read once and the factor written once."""
+    flops = np_ ** 3 / 3.0
+    nbytes = 2.0 * np_ * np_ * itemsize
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _count_launches(torch, fn):
+    """CUDA kernels that one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA)
+
+
+def phase_dense_main_matrix(torch, K32):
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+    from madnlp_tpu_torch.ops.ldlt import (
+        ldlt_factorize,
+        ldlt_inertia,
+        pad_identity,
+    )
+
+    n = K32.shape[0]
+    # K7's op path: counts from 0 just before, read just after
+    dk.reset_counts()
+    kf32 = dk.dense_ldlt(K32, DENSE_BLOCK)
+    torch.cuda.synchronize()
+    launches = dk.dense_ldlt_cuda.launches
+    if launches != 1:
+        raise AssertionError(f"K7 launched {launches} times on its op path")
+    pf32 = dk.dense_ldlt_plain(K32, DENSE_BLOCK)
+    lf32 = ldlt_factorize(K32, DENSE_BLOCK)
+    K64 = K32.double()
+    kf, pf, lf = (dk.dense_ldlt(K64, DENSE_BLOCK),
+                  dk.dense_ldlt_plain(K64, DENSE_BLOCK),
+                  ldlt_factorize(K64, DENSE_BLOCK))
+    torch.cuda.synchronize()
+    rel64 = {"K7_vs_plain": _factor_errors(torch, kf, pf)[0],
+             "ldlt_factorize_vs_plain": _factor_errors(torch, lf, pf)[0]}
+    rel32 = {"K7_vs_plain": _factor_errors(torch, kf32, pf32)[0],
+             "ldlt_factorize_vs_plain": _factor_errors(torch, lf32, pf32)[0]}
+    inertia = {"float32": [ldlt_inertia(f) for f in (kf32, pf32, lf32)],
+               "float64": [ldlt_inertia(f) for f in (kf, pf, lf)]}
+    emit({"phase": "dense_main_matrix", "N": n, "block": DENSE_BLOCK,
+          "float64_max_rel_err": rel64, "float64_tol": DENSE_MAIN_RTOL,
+          "float32_max_rel_err (reported)": rel32,
+          "inertia (K7, plain, ldlt_factorize)": inertia})
+    if max(max(v.values()) for v in rel64.values()) > DENSE_MAIN_RTOL:
+        raise AssertionError("K7, plain and ldlt_factorize disagree on the "
+                             "dense main matrix")
+    if len(set(inertia["float64"])) != 1 or len(set(inertia["float32"])) != 1:
+        raise AssertionError(f"inertia differs on the dense main matrix: {inertia}")
+
+    padded = pad_identity(K32, DENSE_BLOCK).contiguous()
+    work = torch.empty_like(padded)
+    rng = np.random.default_rng(5)
+    R = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
+    spd = (R @ R.T + n * torch.eye(n, dtype=torch.float64, device="cuda")).float()
+    times = {
+        "K7": _time_events(torch, lambda: dk.dense_ldlt_cuda(work, DENSE_BLOCK),
+                           lambda: work.copy_(padded), 10),
+        "K7_plain": _time_events(torch, lambda: dk.dense_ldlt_plain(K32, DENSE_BLOCK),
+                                 lambda: None, 3),
+        "ldlt_factorize": _time_events(torch, lambda: ldlt_factorize(K32, DENSE_BLOCK),
+                                       lambda: None, 3),
+        "cholesky_spd_context": _time_events(
+            torch, lambda: torch.linalg.cholesky(spd), lambda: None, 10),
+    }
+    bound = _dense_bound(padded.shape[0], K32.element_size(), "float32")
+    ldlt_launches = _count_launches(torch, lambda: ldlt_factorize(K32, DENSE_BLOCK))
+    emit({"phase": "dense_timing", "dtype": "float32", "N": n,
+          "Np": padded.shape[0], "ms": times, "bound": bound,
+          "ldlt_factorize_device_launches": ldlt_launches})
+    return {"launches": launches, "times": times, "bound": bound}
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -856,6 +1202,9 @@ def main():
     worst = phase_kernels(torch)
     solve = phase_solve(torch, port)
     batch = phase_batch(torch, port, solve["iter_per_s_median"])
+    worst["K7"] = phase_dense_kernels(torch)
+    dense = phase_dense_solve(torch, port)
+    main_matrix = phase_dense_main_matrix(torch, dense["K"])
 
     kernels = []
     for path, i, name, key, errs, line in (
@@ -874,6 +1223,20 @@ def main():
             "bound_by": path["bounds"][key]["bound_by"],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "dense_ldlt_cuda", "route": "cuda",
+        "source": "madnlp_tpu_torch/csrc/dense_ldlt.cu",
+        "replaces": "madnlp_tpu/ops/pallas_ldlt.py:132",
+        # K7 is an op of its own: the solve path factors with
+        # ldlt_factorize (0 launches there); this is its op path's count
+        "launches": main_matrix["launches"],
+        "max_abs_err": worst["K7"],
+        "ms": main_matrix["times"]["K7"],
+        "plain_ms": main_matrix["times"]["K7_plain"],
+        "bound_ms": main_matrix["bound"]["bound_ms"],
+        "bound_by": main_matrix["bound"]["bound_by"],
+        "library_ms": None,
+    })
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

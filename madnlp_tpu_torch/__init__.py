@@ -1,13 +1,16 @@
 """madnlp_tpu_torch — the PyTorch/CUDA port of madnlp_tpu.
 
 The filter line-search interior-point method of ``madnlp_tpu`` on PyTorch
-tensors, with the banded sparse direct factorization's kernels written by
-hand for NVIDIA Hopper (``csrc/``).  The JAX package is the reference this
-port is held against; the port imports nothing of it.
+tensors, with the TPU kernels of the JAX package written by hand for NVIDIA
+Hopper (``csrc/``): the banded sparse direct factorization and the
+whole-matrix dense LDLᵀ.  The JAX package is the reference this port is
+held against; the port imports nothing of it.
 
-Solver state, residuals and iterative refinement are float64; only the
-band factor and its solves use ``opts.dtype``.  Float32 products must be
-true float32, so TF32 is switched off here.
+Models come in as dense callbacks (``create_model``, derivatives from
+``torch.func``) or sparse ones (``SparseNLPModel``).  Solver state,
+residuals and iterative refinement are float64; only the KKT factor and
+its solves use ``opts.dtype``.  Float32 products must be true float32, so
+TF32 is switched off here.
 """
 
 import torch
@@ -15,7 +18,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .models.model import SparseNLPModel  # noqa: E402
+from .models.model import (  # noqa: E402
+    DenseNLPModel,
+    NLPModel,
+    SparseNLPModel,
+    create_model,
+)
 from .utils.options import (  # noqa: E402
     EqualityTreatment,
     FixedVariableTreatment,
@@ -35,7 +43,8 @@ from .ipm.solver import (  # noqa: E402
 )
 
 __all__ = [
-    "SparseNLPModel", "MadNLPOptions", "KKTSystem", "LinearSolver",
+    "create_model", "DenseNLPModel", "NLPModel", "SparseNLPModel",
+    "MadNLPOptions", "KKTSystem", "LinearSolver",
     "InertiaCorrection", "FixedVariableTreatment", "EqualityTreatment",
     "PrintLevel", "RichardsonOptions", "Status", "is_success",
     "MadNLPSolver", "ExecutionStats", "madnlp", "batch_summary",

@@ -1,5 +1,5 @@
 """Problem reformulation layer — port of ``madnlp_tpu/ipm/problem.py``
-(``Scaling``, ``SparseProblem``, ``build_problem``).
+(``Scaling``, ``Problem``, ``SparseProblem``, ``build_problem``).
 
 Reformulates the user NLP
 
@@ -13,13 +13,18 @@ with ``c_i(w) = s_g(i) g_i(x) - s_i`` for inequality rows and
 ``c_i(w) = s_g(i) (g_i(x) - rhs_i)`` for equality rows, plus objective /
 constraint / Jacobian scaling, the MakeParameter treatment of fixed
 variables, equality relaxation and the min/max sign flip.  The index sets
-are host-side numpy masks; :meth:`SparseProblem.to` copies the ones the
+are host-side numpy masks; :meth:`Problem.to` copies the ones the
 evaluations need onto the solver's device once.
 
+:class:`Problem` serves dense-callback models: the Jacobian is the dense
+augmented ``(m, nw)`` matrix ``[J, -E]`` and the Hessian the dense
+``(n, n)`` matrix.  :class:`SparseProblem` serves sparse-callback models:
+value vectors over the static COO structures.
+
 Every evaluation takes the model's parameters ``theta`` (ignored unless
-the model is parametric) and broadcasts over a leading lane axis: ``w
-(B, nw)`` with ``theta (B,)`` and a batch :class:`Scaling` evaluates B
-scenarios at once.
+the model is parametric).  The sparse evaluations also broadcast over a
+leading lane axis: ``w (B, nw)`` with ``theta (B,)`` and a batch
+:class:`Scaling` evaluates B scenarios at once.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.model import SparseNLPModel, to_tensor
+from ..models.model import to_tensor
 from .kernels import as_col
 from ..ops.segment import segment_map, segment_max
 from ..utils.options import (
@@ -51,13 +56,10 @@ class Scaling(NamedTuple):
 
 
 @dataclasses.dataclass
-class SparseProblem:
-    """Static reformulated sparse-callback problem.  The Jacobian lives as
-    ``(nnzj + ns,)`` scaled values over ``(jac_rows_aug, jac_cols_aug)``
-    (slack entries are the trailing −1s), the Hessian as ``(nnzh,)`` values
-    over the model's lower-triangular structure."""
+class Problem:
+    """Static reformulated problem of a dense-callback model."""
 
-    model: SparseNLPModel
+    model: object
     opts: MadNLPOptions
 
     n: int       # original variables
@@ -78,10 +80,6 @@ class SparseProblem:
     xu0: np.ndarray             # (nw,)
     rhs: np.ndarray             # (m,) equality right-hand side (pre-scaling)
     sign: float                 # +1 minimize, -1 maximize
-    jac_rows_aug: np.ndarray = None   # (nnzj + ns,)
-    jac_cols_aug: np.ndarray = None   # (nnzj + ns,) in [0, nw)
-    hess_rows: np.ndarray = None
-    hess_cols: np.ndarray = None
     xl_fixed: np.ndarray = None       # (n,) original lower bounds
     device: torch.device = None
 
@@ -98,27 +96,26 @@ class SparseProblem:
         return self.m > 0
 
     @property
-    def nnzj_aug(self) -> int:
-        return len(self.jac_rows_aug)
+    def is_sparse(self) -> bool:
+        return False
 
-    def to(self, device) -> "SparseProblem":
+    def _device_arrays(self) -> dict:
+        fm = self.fixed_mask
+        slack_e = np.zeros((self.m, self.ns))
+        slack_e[self.slack_sel, np.arange(self.ns)] = -1.0
+        return dict(
+            slack_sel=self.slack_sel, rhs=self.rhs, fixed=fm,
+            xl_fixed=self.xl_fixed, slack_e=slack_e,
+            fixed_pair=fm[:, None] | fm[None, :],
+            fixed_diag=np.where(fm, 1.0, 0.0),
+        )
+
+    def to(self, device) -> "Problem":
         """Materialise the masks and maps the evaluations use on ``device``."""
         self.device = torch.device(device)
-        mdl = self.model
-        fm = self.fixed_mask
-        hr, hc = mdl.hess_rows, mdl.hess_cols
         self.t = types.SimpleNamespace(**{
-            k: to_tensor(v, self.device) for k, v in dict(
-                slack_sel=self.slack_sel,
-                rhs=self.rhs,
-                fixed=fm,
-                xl_fixed=self.xl_fixed,
-                jac_rows=mdl.jac_rows,
-                jac_fixed=fm[mdl.jac_cols],
-                hess_fixed=fm[hr] | fm[hc],
-                hess_unit=(hr == hc) & fm[hr],
-                row_table=segment_map(mdl.jac_rows, self.m),
-            ).items()
+            k: to_tensor(v, self.device)
+            for k, v in self._device_arrays().items()
         })
         return self
 
@@ -174,6 +171,86 @@ class SparseProblem:
         return c
 
     def eval_jac(self, scal: Scaling, w, theta=None):
+        """(m, nw) augmented Jacobian [s_g ∘ J(x), -E]."""
+        J = scal.con_scale[:, None] * self._call(self.model.jac, self.x_of(w),
+                                                 theta=theta)
+        if self.fixed_mask.any():
+            J = torch.where(self.t.fixed[None, :], 0.0, J)
+        return torch.cat([J, self.t.slack_e], 1)
+
+    def eval_lag_hess(self, scal: Scaling, w, y, theta=None,
+                      is_resto: bool = False):
+        """(n, n) Lagrangian Hessian in the scaled space."""
+        obj_weight = (0.0 if is_resto else 1.0) * self.sign * scal.obj_scale
+        H = self._call(self.model.lag_hess, self.x_of(w), y * scal.con_scale,
+                       obj_weight, theta=theta)
+        if self.fixed_mask.any():
+            H = torch.where(self.t.fixed_pair, 0.0, H)
+            H = H + torch.diag(self.t.fixed_diag)
+        return H
+
+    def compute_scaling(self, w0, theta=None) -> Scaling:
+        """Row-max Jacobian scaling and gradient scaling
+        (nlpmodels.jl:225-264)."""
+        if not self.opts.nlp_scaling:
+            return Scaling(1.0, self.zeros(self.m) + 1.0)
+        max_g = self.opts.nlp_scaling_max_gradient
+        if self.m > 0:
+            unit = Scaling(1.0, self.zeros(self.m) + 1.0)
+            J = self.eval_jac(unit, w0, theta)[:, : self.n]
+            row_max = torch.clamp_min(J.abs().amax(1), 1.0)
+            con_scale = torch.clamp_max(max_g / row_max, 1.0)
+        else:
+            con_scale = self.zeros(0)
+        x = self.x_of(w0)
+        gnorm = (float(self._call(self.model.grad, x, theta=theta).abs().max())
+                 if self.n else 1.0)
+        return Scaling(min(1.0, max_g / max(gnorm, 1e-300)), con_scale)
+
+    def jac_template(self):
+        return self.zeros(self.m, self.nw)
+
+    def hess_template(self):
+        return self.zeros(self.n, self.n)
+
+
+@dataclasses.dataclass
+class SparseProblem(Problem):
+    """Static reformulated sparse-callback problem.  The Jacobian lives as
+    ``(nnzj + ns,)`` scaled values over ``(jac_rows_aug, jac_cols_aug)``
+    (slack entries are the trailing −1s), the Hessian as ``(nnzh,)`` values
+    over the model's lower-triangular structure."""
+
+    jac_rows_aug: np.ndarray = None   # (nnzj + ns,)
+    jac_cols_aug: np.ndarray = None   # (nnzj + ns,) in [0, nw)
+    hess_rows: np.ndarray = None
+    hess_cols: np.ndarray = None
+
+    @property
+    def is_sparse(self) -> bool:
+        return True
+
+    @property
+    def nnzj_aug(self) -> int:
+        return len(self.jac_rows_aug)
+
+    def _device_arrays(self) -> dict:
+        mdl = self.model
+        fm = self.fixed_mask
+        hr, hc = mdl.hess_rows, mdl.hess_cols
+        return dict(
+            slack_sel=self.slack_sel,
+            rhs=self.rhs,
+            fixed=fm,
+            xl_fixed=self.xl_fixed,
+            jac_rows=mdl.jac_rows,
+            jac_fixed=fm[mdl.jac_cols],
+            hess_fixed=fm[hr] | fm[hc],
+            hess_unit=(hr == hc) & fm[hr],
+            row_table=segment_map(mdl.jac_rows, self.m),
+        )
+
+    def eval_jac(self, scal: Scaling, w, theta=None):
         """(…, nnzj+ns) scaled jacobian values; slack entries are the
         trailing -1s."""
         vals = self._call(self.model.jac_coords, self.x_of(w), theta=theta)
@@ -220,13 +297,15 @@ class SparseProblem:
         return Scaling(torch.tensor(obj_scale, dtype=torch.float64,
                                     device=self.device), con_scale)
 
+    def jac_template(self):
+        return self.zeros(self.nnzj_aug)
+
     def hess_template(self, lanes: int = None):
         lead = () if lanes is None else (lanes,)
         return self.zeros(*lead, len(self.hess_rows))
 
 
-def build_problem(model: SparseNLPModel, opts: MadNLPOptions,
-                  device) -> SparseProblem:
+def build_problem(model, opts: MadNLPOptions, device) -> Problem:
     """Host-side reformulation (the `create_callback` analogue,
     nlpmodels.jl:412-508), with the evaluation maps placed on ``device``."""
     n, m = model.n, model.m
@@ -264,7 +343,7 @@ def build_problem(model: SparseNLPModel, opts: MadNLPOptions,
 
     llb = (lvar > -np.inf) & (uvar == np.inf)
     uub = (lvar == -np.inf) & (uvar < np.inf)
-    prob = SparseProblem(
+    fields = dict(
         model=model,
         opts=opts,
         n=n,
@@ -284,6 +363,12 @@ def build_problem(model: SparseNLPModel, opts: MadNLPOptions,
         xu0=xu0,
         rhs=rhs,
         sign=sign,
+        xl_fixed=xl_fixed,
+    )
+    if model.is_dense:
+        return Problem(**fields).to(device)
+    prob = SparseProblem(
+        **fields,
         # the slack entries augment the jacobian structure so every
         # J-product is one uniform segment op
         jac_rows_aug=np.concatenate([model.jac_rows, slack_sel]),
@@ -291,6 +376,5 @@ def build_problem(model: SparseNLPModel, opts: MadNLPOptions,
             [model.jac_cols, n + np.arange(ns, dtype=np.int64)]),
         hess_rows=model.hess_rows,
         hess_cols=model.hess_cols,
-        xl_fixed=xl_fixed,
     )
     return prob.to(device)

@@ -4,7 +4,11 @@
 
 The iteration runs as a host loop over device tensors, one regular step at
 a time; ``solve_batch`` runs B same-structure scenarios of a parametric
-model in lock step (:mod:`.batch`).  Entry points run on the card:
+sparse model in lock step (:mod:`.batch`).  The KKT system follows the
+JAX package's presets: dense-callback models default to the condensed
+dense system (Cholesky without equality rows, LDLᵀ with them), sparse
+models to the sparse system, banded where the ordering gives a narrow
+band and dense storage otherwise.  Entry points run on the card:
 ``device=None`` means ``"cuda"``, and without CUDA they raise; pass
 ``device="cpu"`` to run on the CPU.
 """
@@ -18,8 +22,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kkt.condensed_dense import DenseCondensedKKT
+from ..kkt.dense import DenseKKT
 from ..kkt.sparse import SparseKKT
-from ..models.model import SparseNLPModel
 from ..ops.banded import kkt_interleaved_ordering
 from ..utils import log as logfmt
 from ..utils.options import KKTSystem, LinearSolver, MadNLPOptions, PrintLevel
@@ -77,18 +82,41 @@ class MadNLPSolver:
                  device=None, **kwargs):
         self.device = resolve_device(device)
         opts = options if options is not None else MadNLPOptions.create(**kwargs)
-        if not isinstance(model, SparseNLPModel):
-            raise _later("dense-callback models")
-        resolved = opts.resolve(dense_callback=False, m=model.m)
-        if resolved.kkt_system != KKTSystem.SPARSE:
-            raise _later(f"kkt_system={resolved.kkt_system}")
+        resolved = opts.resolve(dense_callback=model.is_dense, m=model.m)
+        kkt_sys = resolved.kkt_system
+        dense_kkt = kkt_sys in (KKTSystem.DENSE, KKTSystem.DENSE_CONDENSED)
+        if not (dense_kkt or kkt_sys == KKTSystem.SPARSE):
+            raise _later(f"kkt_system={kkt_sys}")
+        if dense_kkt and not model.is_dense:
+            # dense KKT systems consume the densified sparse model
+            model = model.to_dense()
         self.model = model
         self.opts = resolved
         self.prob = build_problem(model, self.opts, self.device)
-        if opts.linear_solver is None:
+        p = self.prob
+        if self.opts.ldl_block_size is None:
+            # 128-wide panels once the KKT system is big enough to fill
+            # them, 64 below that (the JAX package's rule)
             self.opts = dataclasses.replace(
-                self.opts, linear_solver=self._sparse_preset(LinearSolver.LDL))
-        self.kernel = Kernel(self.prob, self.opts, SparseKKT(self.prob, self.opts))
+                self.opts, ldl_block_size=128 if p.nw + p.m >= 1024 else 64)
+        if opts.linear_solver is None:
+            # condensed systems are SPD without equality rows -> Cholesky;
+            # otherwise LDLᵀ; large sparse systems with a narrow band ->
+            # the banded sparse direct factorization
+            lin = (LinearSolver.CHOLESKY
+                   if kkt_sys == KKTSystem.DENSE_CONDENSED and p.n_eq == 0
+                   else LinearSolver.LDL)
+            if p.is_sparse:
+                lin = self._sparse_preset(lin)
+            self.opts = dataclasses.replace(self.opts, linear_solver=lin)
+        if p.is_sparse:
+            kkt = SparseKKT(p, self.opts)
+        elif kkt_sys == KKTSystem.DENSE_CONDENSED:
+            kkt = DenseCondensedKKT(p, self.opts)
+        else:
+            # dense callbacks use dense storage for the SPARSE system too
+            kkt = DenseKKT(p, self.opts)
+        self.kernel = Kernel(p, self.opts, kkt)
         self.batch_kernel = BatchKernel(self.kernel)
         self._output_fh = None
         self.state: Optional[State] = None
@@ -166,6 +194,11 @@ class MadNLPSolver:
             return
         p = self.prob
         model = p.model
+        if model.is_dense:
+            nnzj = model.m * model.n
+            nnzh = model.n * (model.n + 1) // 2
+        else:
+            nnzj, nnzh = len(model.jac_rows), len(model.hess_rows)
         lb, ub = p.lb_mask[: p.n], p.ub_mask[: p.n]
         n_free = int((~p.fixed_mask).sum()) if p.fixed_mask.any() else p.n
         ineq = p.ineq_mask
@@ -174,7 +207,7 @@ class MadNLPSolver:
         c_ub = ~(lcon > -np.inf) & (ucon < np.inf) & ineq
         c_both = (lcon > -np.inf) & (ucon < np.inf) & ineq
         for line in logfmt.format_init(
-            len(model.jac_rows), len(model.hess_rows), n_free,
+            nnzj, nnzh, n_free,
             int((lb & ~ub).sum()), int((lb & ub).sum()), int((~lb & ub).sum()),
             p.n_eq, p.ns,
             int(c_lb.sum()), int(c_both.sum()), int(c_ub.sum()),
@@ -258,6 +291,9 @@ class MadNLPSolver:
         the port), as does ``sharding``."""
         if sharding is not None:
             raise _later("sharding= (a multi-device solve_batch)")
+        if not getattr(self.kernel.kkt, "banded", False):
+            raise _later("solve_batch with dense KKT storage or a "
+                         "dense-callback model")
         theta = torch.as_tensor(np.asarray(params_batch, dtype=np.float64),
                                 device=self.device)
         B = int(theta.shape[0])

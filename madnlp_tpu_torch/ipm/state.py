@@ -44,8 +44,8 @@ class State:
     obj_val: float
     f: torch.Tensor
     c: torch.Tensor
-    jac: torch.Tensor       # (nnzj + ns,) values
-    hess: torch.Tensor      # (nnzh,) values
+    jac: torch.Tensor       # (nnzj + ns,) values, or the (m, nw) matrix
+    hess: torch.Tensor      # (nnzh,) values, or the (n, n) matrix
     jacl: torch.Tensor      # (nw,) Aᵀy
     # trial point
     x_trial: torch.Tensor
@@ -97,15 +97,17 @@ class State:
     log_row: list = dataclasses.field(default_factory=lambda: [0.0] * 12)
 
 
-def state_zeros(nw: int, m: int, nnzj: int, nnzh: int, filter_capacity: int,
-                device) -> State:
+def state_zeros(nw: int, m: int, jac: torch.Tensor, hess: torch.Tensor,
+                filter_capacity: int, device) -> State:
+    """A zero state; ``jac`` and ``hess`` are the problem's templates (value
+    vectors for a sparse problem, matrices for a dense one)."""
     def z(k):
         return torch.zeros((k,), dtype=torch.float64, device=device)
 
     return State(
         x=z(nw), y=z(m), zl=z(nw), zu=z(nw),
         xl=z(nw) - torch.inf, xu=z(nw) + torch.inf,
-        obj_val=0.0, f=z(nw), c=z(m), jac=z(nnzj), hess=z(nnzh), jacl=z(nw),
+        obj_val=0.0, f=z(nw), c=z(m), jac=jac, hess=hess, jacl=z(nw),
         x_trial=z(nw), obj_val_trial=0.0, c_trial=z(m),
         d=kkt_zeros(nw, m, device), p=kkt_zeros(nw, m, device),
         mu=1e-1, tau=0.99, filter=filter_init(filter_capacity),

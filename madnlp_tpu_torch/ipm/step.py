@@ -28,7 +28,7 @@ from ..utils.options import (
 )
 from ..utils.status import Status as S
 from . import kernels as K
-from .problem import SparseProblem
+from .problem import Problem
 from .state import State, state_zeros
 
 
@@ -39,7 +39,7 @@ def _later(what: str):
 class Kernel:
     """Closes over the static problem/options; exposes the step functions."""
 
-    def __init__(self, prob: SparseProblem, opts: MadNLPOptions, kkt):
+    def __init__(self, prob: Problem, opts: MadNLPOptions, kkt):
         self.prob = prob
         self.opts = opts
         self.kkt = kkt
@@ -89,7 +89,7 @@ class Kernel:
         """``theta``: the model's parameters (a tensor; parametric models)."""
         p, o = self.prob, self.opts
         dev = p.device
-        st = state_zeros(p.nw, p.m, p.nnzj_aug, len(p.hess_rows),
+        st = state_zeros(p.nw, p.m, p.jac_template(), p.hess_template(),
                          o.filter_capacity, dev)
         lb, ub = self.lb, self.ub
 
@@ -103,7 +103,10 @@ class Kernel:
             xu = torch.where(er, xu2, xu)
         xl, xu = K.set_initial_bounds(xl, xu, lb, ub, o.bound_relax_factor)
 
-        x0 = torch.as_tensor(p.model.x0, device=dev)
+        if getattr(p.model, "x0_fn", None) is not None:
+            x0 = p.model.x0_fn(theta)
+        else:
+            x0 = torch.as_tensor(p.model.x0, device=dev)
         if p.fixed_mask.any():
             x0 = torch.where(p.t.fixed, p.t.xl_fixed, x0)
         n = p.n

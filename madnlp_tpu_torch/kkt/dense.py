@@ -1,5 +1,6 @@
-"""Reduced augmented KKT system, the base of :class:`..sparse.SparseKKT` —
-port of the factorization-independent part of ``madnlp_tpu/kkt/dense.py``.
+"""Dense reduced augmented KKT system — port of
+``madnlp_tpu/kkt/dense.py:DenseKKT``, and the base of
+:class:`..sparse.SparseKKT` and :class:`..condensed_dense.DenseCondensedKKT`.
 
 The system is the reduced augmented form (KKTsystem.jl:38-58)
 
@@ -8,16 +9,19 @@ The system is the reduced augmented form (KKTsystem.jl:38-58)
     [ Aₑ                0          -δcI  0  ] [Δy]
     [ Aᵢ               -I           0  -δcI ] [Δz]
 
-with the bound duals eliminated and recovered analytically
+stored as one (nw+m, nw+m) symmetric dense matrix and built fresh every
+factorization, with the bound duals eliminated and recovered analytically
 (kernels.jl:182-204), positive-slack convention ``dl = x - xl``,
-``du = xu - x``.  Dense storage and dense factorizations come in a later
-slice of the port; this class carries the diagonals, the reduction and
-recovery of the bound-dual rows, the refined solve with μ-aware stopping,
-and leaves assembly, factorization, backsolve and operator to subclasses.
+``du = xu - x``.  The matrix is equilibrated by 3 Ruiz sweeps (a congruence
+D·K·D, which keeps the inertia), cast to ``opts.dtype`` and factored by
+:mod:`..ops.dense_solvers`; the refinement operator stays float64.
 
-Every function also takes a batch: vectors and context with a leading
-lane axis ``(B, ·)``, an ``active`` lane mask (numpy bool ``(B,)``) that
-selects the lanes a backsolve or refinement runs for, and a per-lane μ.
+The diagonals, the reduction and recovery of the bound-dual rows and the
+refined solve with μ-aware stopping are shared with the subclasses, and
+also take a batch: vectors and context with a leading lane axis
+``(B, ·)``, an ``active`` lane mask (numpy bool ``(B,)``) that selects the
+lanes a backsolve or refinement runs for, and a per-lane μ (the banded
+sparse path's ``solve_batch``; dense storage runs one system).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import dense_solvers as ds
 from ..ops.refine import solve_refine, solve_refine_batched
 from ..utils.options import LinearSolver, MadNLPOptions
 from .vec import KKTVec
@@ -34,8 +39,13 @@ from .vec import KKTVec
 _FACT_DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
+def _later(what: str):
+    return NotImplementedError(f"{what} comes in a later slice of the port")
+
+
 class EquilibratedFactor(NamedTuple):
-    """Factor of D·K·D plus the Ruiz scaling vector d (original ordering)."""
+    """Factor of D·K·D plus the Ruiz scaling vector d (original ordering).
+    The L-BFGS (SMW) payload of the JAX package comes in a later slice."""
 
     inner: object
     d: torch.Tensor
@@ -46,8 +56,9 @@ class EquilibratedFactor(NamedTuple):
 class KKTContext(NamedTuple):
     """Per-iteration numeric payload of the KKT system."""
 
-    hess: torch.Tensor      # (nnzh,) Hessian values
-    jac: torch.Tensor       # (nnzj + ns,) augmented Jacobian values
+    hess: torch.Tensor      # (n, n) Hessian, or its (nnzh,) COO values
+    jac: torch.Tensor       # (m, nw) augmented Jacobian [J, -E], or its
+    #                         (nnzj + ns,) COO values
     pr_diag: torch.Tensor   # (nw,) primal diagonal  Σ + reg
     du_diag: torch.Tensor   # (m,) dual diagonal (≤ 0)
     reg: torch.Tensor       # (nw,) primal regularization part of pr_diag
@@ -74,6 +85,45 @@ class DenseKKT:
         self.fact_dtype = _FACT_DTYPES[opts.dtype]
         self.lb = torch.as_tensor(prob.lb_mask, device=self.device)
         self.ub = torch.as_tensor(prob.ub_mask, device=self.device)
+        if prob.m == 0 and self.solver in (LinearSolver.BLOCK_CHOLESKY,
+                                           LinearSolver.HYKKT):
+            # no dual block to eliminate: plain Cholesky is the same method
+            self.solver = LinearSolver.CHOLESKY
+        if opts.kkt_scaling not in ("ruiz", "none"):
+            raise _later(f"kkt_scaling={opts.kkt_scaling!r}")
+        # the TPU's "inverse" default stays behind: backsolves are
+        # triangular solves on every device unless the caller asks
+        self.solve_mode = opts.solve_mode or "trisolve"
+
+    # -- dense storage: equilibrate and factorize ---------------------------
+
+    def _factorize_matrix(self, K):
+        """Factorize D·K·D with D from 3 Ruiz sweeps (``kkt_scaling="ruiz"``,
+        d ← d/√(row-inf-norm); zero rows keep d = 1), the scaled matrix in
+        ``opts.dtype``."""
+        d = K.new_ones(K.shape[0])
+        if self.opts.kkt_scaling == "ruiz":
+            for _ in range(3):
+                r = (K * (d[:, None] * d[None, :])).abs().amax(1)
+                d = torch.where(r > 0.0, d / torch.sqrt(torch.clamp_min(r, 1e-32)),
+                                1.0)
+        Kf = (K * (d[:, None] * d[None, :])).to(self.fact_dtype)
+        inner = ds.factorize(Kf, self.solver,
+                             block=self.opts.ldl_block_size or 64,
+                             solve_mode=self.solve_mode)
+        return EquilibratedFactor(inner=inner, d=d)
+
+    def _backsolve(self, factor, rhs, active=None):
+        # K x = b  ⟺  (DKD)(D⁻¹x) = D b
+        if active is not None:
+            raise _later("batched dense KKT storage")
+        d = factor.d if rhs.ndim == 1 else factor.d[:, None]
+        scaled = (d * rhs).to(self.fact_dtype)
+        return d * ds.solve(factor.inner, scaled).to(rhs.dtype)
+
+    def sys_size(self) -> int:
+        """Dimension of the assembled matrix."""
+        return self.prob.nw + self.prob.m
 
     # -- diagonals (set_aug_diagonal!, kernels.jl:4-27) --------------------
 
@@ -92,8 +142,10 @@ class DenseKKT:
         return zero == 0 and pos == self.prob.nw
 
     def has_inertia(self) -> bool:
-        # the only factorization of this slice, the banded LDLᵀ, has one
-        return self.solver == LinearSolver.BANDED
+        return ds.has_inertia(self.solver)
+
+    def inertia(self, ctx: KKTContext):
+        return ds.inertia(ctx.factor.inner)
 
     # -- solve -------------------------------------------------------------
 
@@ -160,21 +212,59 @@ class DenseKKT:
             acceptable_tol=self.opts.richardson_acceptable_tol,
         )
 
-    # -- provided by the storage-specific subclass ------------------------
-
-    def _backsolve(self, factor, rhs, active=None):
-        raise NotImplementedError(
-            "dense KKT storage comes in a later slice of the port")
+    # -- assembly + factorization -----------------------------------------
 
     def build_and_factorize(self, hess, jac, reg, du_diag, dl, du_, zl, zu,
                             rr: bool = False, active=None, prev=None):
-        raise NotImplementedError(
-            "dense KKT storage comes in a later slice of the port")
+        if rr:
+            raise _later("restoration")
+        if active is not None:
+            raise _later("batched dense KKT storage")
+        p = self.prob
+        pr_diag, du_diag = self.aug_diagonals(reg, du_diag, dl, du_, zl, zu)
+        n, nw, m = p.n, p.nw, p.m
+        W = hess.new_zeros((nw, nw))
+        W[:n, :n] = hess
+        W.diagonal().add_(pr_diag)
+        if m > 0:
+            K = torch.cat([torch.cat([W, jac.T], 1),
+                           torch.cat([jac, torch.diag(du_diag)], 1)])
+        else:
+            K = W
+        return KKTContext(
+            hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag, reg=reg,
+            dl=dl, du_=du_, zl=zl, zu=zu, factor=self._factorize_matrix(K),
+        )
 
-    def inertia(self, ctx: KKTContext):
-        raise NotImplementedError(
-            "dense KKT storage comes in a later slice of the port")
+    # -- operator application (for iterative refinement) -------------------
 
     def mul(self, ctx: KKTContext, v: KKTVec) -> KKTVec:
-        raise NotImplementedError(
-            "dense KKT storage comes in a later slice of the port")
+        """w = K v with the *unreduced* operator (factorization.jl:303-324 +
+        _kktmul!, kernels.jl:161-180), in positive-slack convention."""
+        p = self.prob
+        lb, ub = self.lb, self.ub
+        hv = ctx.hess @ v.xp[: p.n]
+        wx = torch.cat([hv, hv.new_zeros(p.nw - p.n)])
+        wx = wx + ctx.reg * v.xp
+        if p.m > 0:
+            wx = wx + ctx.jac.T @ v.y
+            wy = ctx.jac @ v.xp + ctx.du_diag * v.y
+        else:
+            wy = v.y
+        wx = wx - torch.where(lb, v.zl, 0.0) + torch.where(ub, v.zu, 0.0)
+        wzl = torch.where(lb, ctx.zl * v.xp + ctx.dl * v.zl, 0.0)
+        wzu = torch.where(ub, ctx.zu * v.xp - ctx.du_ * v.zu, 0.0)
+        return KKTVec(xp=wx, y=wy, zl=wzl, zu=wzu)
+
+    def mul_hess_blk(self, ctx: KKTContext, t):
+        """wx = (W + Σ) t for the inertia-free curvature test
+        (factorization.jl:326-331)."""
+        p = self.prob
+        ht = ctx.hess @ t[: p.n]
+        return torch.cat([ht, ht.new_zeros(p.nw - p.n)]) + t * ctx.pr_diag
+
+    def jtprod(self, jac, y):
+        """jacl = Aᵀ y over the full primal space."""
+        if self.prob.m == 0:
+            return jac.new_zeros(self.prob.nw)
+        return jac.T @ y

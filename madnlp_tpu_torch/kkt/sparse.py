@@ -1,19 +1,26 @@
-"""Sparse-callback reduced augmented KKT system with the banded sparse
-direct factorization — port of the banded path of
-``madnlp_tpu/kkt/sparse.py:SparseKKT``.
+"""Sparse-callback reduced augmented KKT system — port of
+``madnlp_tpu/kkt/sparse.py:SparseKKT``: the banded sparse direct path and
+the dense-storage branch that every other linear solver takes.
 
-Per factorization: one deterministic assembly of the raw f64 band from the
-COO values ``[pr_diag, du_diag, jac, hess]``, Ruiz equilibration on the
-band, the congruence-scaled band cast to ``opts.dtype`` and factored
-(block-banded LDLᵀ: the K1 kernel on the card, its plain version on the
-CPU).  Backsolves run K2 on the scaled, permuted right-hand side; the f64
-refinement operator is the unscaled symmetrized band (block-banded
-mat-vecs, no scatters).
+Banded (``linear_solver=BANDED``).  Per factorization: one deterministic
+assembly of the raw f64 band from the COO values ``[pr_diag, du_diag, jac,
+hess]``, Ruiz equilibration on the band, the congruence-scaled band cast to
+``opts.dtype`` and factored (block-banded LDLᵀ: the K1 kernel on the card,
+its plain version on the CPU).  Backsolves run K2 on the scaled, permuted
+right-hand side; the f64 refinement operator is the unscaled symmetrized
+band (block-banded mat-vecs, no scatters).
 
-The Jacobian and Hessian products are gather-sums over host-built
-contributor tables (:mod:`..ops.segment`), deterministic on every device.
+Dense storage (``LDL``, ``CHOLESKY``, ``LU``, ``QR``, ``EVD``): the same
+COO values are assembled into one dense (nw+m, nw+m) matrix and factored
+by :class:`.dense.DenseKKT`'s path (JAX ``kkt/sparse.py:594-610``); this is
+where the sparse preset's LDL fallback for small systems lands.  The
+refinement operator is the sparse products.
 
-A batch of same-structure systems (``solve_batch``) runs the same path
+Every COO assembly and product is a gather-sum over host-built
+contributor tables (:mod:`..ops.segment`), deterministic on every device;
+the JAX package's scatter-adds would sum duplicates by atomics on CUDA.
+
+A batch of same-structure systems (``solve_batch``) runs the banded path
 with a leading lane axis: assembly, Ruiz and inertia per lane, the factor
 through K3 and the backsolves through K4, both under an ``active`` lane
 mask.  A lane left out of a factorization keeps its previous factor, so
@@ -50,12 +57,12 @@ class SparseKKT(DenseKKT):
 
     def __init__(self, prob, opts):
         super().__init__(prob, opts)
-        if opts.linear_solver != LinearSolver.BANDED:
+        if opts.linear_solver in (LinearSolver.BLOCK_ARROW,
+                                  LinearSolver.MULTIFRONTAL):
             raise _later(f"linear_solver={opts.linear_solver}")
         if opts.hessian_approximation != HessianApproximation.EXACT:
             raise _later(f"hessian_approximation={opts.hessian_approximation}")
-        if opts.kkt_scaling not in ("ruiz", "none"):
-            raise _later(f"kkt_scaling={opts.kkt_scaling!r}")
+        self.banded = opts.linear_solver == LinearSolver.BANDED
         if opts.banded_partitions:
             raise _later("banded_partitions (SPIKE)")
         if opts.banded_backend != "auto":
@@ -78,7 +85,38 @@ class SparseKKT(DenseKKT):
         self._jp_table = t(segment_map(jr, p.m))
         self._hr_table = t(segment_map(hr, p.n))
         self._hc_table = t(segment_map(hc, p.n))
-        self._init_band_structure()
+        if self.banded:
+            self._init_band_structure()
+        else:
+            self._init_dense_assembly()
+
+    # -- dense storage -------------------------------------------------------
+
+    def _init_dense_assembly(self):
+        """Gather map of the dense (N, N) matrix from the value vector
+        ``[pr_diag, du_diag, jac, jac, hess, hess_off]``: both triangles of
+        the Jacobian block, the Hessian's lower entries and their mirrors."""
+        p = self.prob
+        N = p.nw + p.m
+        diag = np.arange(N, dtype=np.int64)
+        jr = p.nw + np.asarray(p.jac_rows_aug)
+        jc = np.asarray(p.jac_cols_aug)
+        hr, hc = np.asarray(p.hess_rows), np.asarray(p.hess_cols)
+        off = np.flatnonzero(hr != hc)
+        rows = np.concatenate([diag, jr, jc, hr, hc[off]])
+        cols = np.concatenate([diag, jc, jr, hc, hr[off]])
+        flat, inv = np.unique(rows * N + cols, return_inverse=True)
+        self._dense_flat = torch.as_tensor(flat, device=self.device)
+        self._dense_table = torch.as_tensor(
+            segment_map(inv.ravel(), len(flat)), device=self.device)
+        self._h_off = torch.as_tensor(off, device=self.device)
+
+    def _assemble_dense(self, pr_diag, du_diag, jac, hess):
+        N = self.prob.nw + self.prob.m
+        vals = torch.cat([pr_diag, du_diag, jac, jac, hess, hess[self._h_off]])
+        K = vals.new_zeros(N * N)
+        K[self._dense_flat] = segment_sum(vals, self._dense_table)
+        return K.reshape(N, N)
 
     # -- block-banded backend ----------------------------------------------
 
@@ -145,6 +183,8 @@ class SparseKKT(DenseKKT):
         return EquilibratedFactor(inner=inner, d=d, opband=raw_sym)
 
     def _backsolve(self, factor, rhs, active=None):
+        if not self.banded:
+            return super()._backsolve(factor, rhs, active)
         # K x = b  ⟺  (DKD)(D⁻¹x) = D b
         scaled = (factor.d * rhs).to(self.fact_dtype)
         if active is None:
@@ -156,6 +196,8 @@ class SparseKKT(DenseKKT):
         return factor.d * xp[..., self._biperm].to(rhs.dtype)
 
     def inertia(self, ctx):
+        if not self.banded:
+            return super().inertia(ctx)
         return banded_inertia(self.bstruct, ctx.factor.inner)
 
     # -- sparse products ---------------------------------------------------
@@ -190,6 +232,14 @@ class SparseKKT(DenseKKT):
         if rr:
             raise _later("restoration")
         pr_diag, du_diag = self.aug_diagonals(reg, du_diag, dl, du_, zl, zu)
+        if not self.banded:
+            if active is not None:
+                raise _later("batched dense KKT storage")
+            K = self._assemble_dense(pr_diag, du_diag, jac, hess)
+            return KKTContext(
+                hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag,
+                reg=reg, dl=dl, du_=du_, zl=zl, zu=zu,
+                factor=self._factorize_matrix(K))
         vals = torch.cat([pr_diag, du_diag, jac, hess], -1)
         factor = self._banded_factorize_coo(
             vals, active, None if prev is None else prev.factor)
@@ -206,11 +256,14 @@ class SparseKKT(DenseKKT):
     # -- operator ----------------------------------------------------------
 
     def mul(self, ctx: KKTContext, v: KKTVec) -> KKTVec:
-        """w = K v with the *unreduced* operator: the augmented product from
-        the stored f64 operator band, the Σ/bound-dual terms corrected
-        elementwise."""
+        """w = K v with the *unreduced* operator: on the banded path the
+        augmented product comes from the stored f64 operator band, the
+        Σ/bound-dual terms corrected elementwise; with dense storage from
+        the sparse products."""
         p = self.prob
         lb, ub = self.lb, self.ub
+        if not self.banded:
+            return self._mul_sparse(ctx, v)
         vfull = torch.cat([v.xp, v.y], -1)
         kv = banded_symv(self.bstruct, ctx.factor.opband,
                          vfull[..., self._bperm])[..., self._biperm]
@@ -224,3 +277,26 @@ class SparseKKT(DenseKKT):
         wzl = torch.where(lb, ctx.zl * v.xp + ctx.dl * v.zl, 0.0)
         wzu = torch.where(ub, ctx.zu * v.xp - ctx.du_ * v.zu, 0.0)
         return KKTVec(xp=wx, y=wy, zl=wzl, zu=wzu)
+
+    def _mul_sparse(self, ctx: KKTContext, v: KKTVec) -> KKTVec:
+        p = self.prob
+        lb, ub = self.lb, self.ub
+        hv = self.hess_mul(ctx.hess, v.xp[: p.n])
+        wx = torch.cat([hv, hv.new_zeros(p.nw - p.n)])
+        wx = wx + ctx.reg * v.xp
+        if p.m > 0:
+            wx = wx + self.jtprod(ctx.jac, v.y)
+            wy = self.jprod(ctx.jac, v.xp) + ctx.du_diag * v.y
+        else:
+            wy = v.y
+        wx = wx - torch.where(lb, v.zl, 0.0) + torch.where(ub, v.zu, 0.0)
+        wzl = torch.where(lb, ctx.zl * v.xp + ctx.dl * v.zl, 0.0)
+        wzu = torch.where(ub, ctx.zu * v.xp - ctx.du_ * v.zu, 0.0)
+        return KKTVec(xp=wx, y=wy, zl=wzl, zu=wzu)
+
+    def mul_hess_blk(self, ctx: KKTContext, t):
+        """wx = (W + Σ) t for the inertia-free curvature test
+        (factorization.jl:326-331)."""
+        p = self.prob
+        ht = self.hess_mul(ctx.hess, t[: p.n])
+        return torch.cat([ht, ht.new_zeros(p.nw - p.n)]) + t * ctx.pr_diag

@@ -1,5 +1,6 @@
-"""Hock–Schittkowski problem 15, sparse callbacks — port of
-``madnlp_tpu/models/instances/hs15.py:build_sparse``.
+"""Hock–Schittkowski problem 15 — port of
+``madnlp_tpu/models/instances/hs15.py`` (``build``, the dense model with
+``torch.func`` derivatives, and ``build_sparse``).
 
     min 100 (x2 - x1²)² + (1 - x1)²
     s.t. x1 x2 >= 1,  x1 + x2² >= 0,  x1 <= 0.5
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..model import SparseNLPModel
+from ..model import DenseNLPModel, SparseNLPModel
 
 
 def obj(x):
@@ -19,6 +20,22 @@ def obj(x):
 
 def cons(x):
     return torch.stack([x[0] * x[1], x[0] + x[1] ** 2])
+
+
+def build(x0=(0.0, 0.0), y0=(0.0, 0.0)) -> DenseNLPModel:
+    return DenseNLPModel(
+        n=2,
+        m=2,
+        obj=obj,
+        cons=cons,
+        x0=np.asarray(x0, dtype=np.float64),
+        y0=np.asarray(y0, dtype=np.float64),
+        lvar=[-np.inf, -np.inf],
+        uvar=[0.5, np.inf],
+        lcon=[1.0, 0.0],
+        ucon=[np.inf, np.inf],
+        name="hs15",
+    )
 
 
 def build_sparse(x0=(0.0, 0.0), y0=(0.0, 0.0)) -> SparseNLPModel:
@@ -53,3 +70,10 @@ def build_sparse(x0=(0.0, 0.0), y0=(0.0, 0.0)) -> SparseNLPModel:
         ucon=[np.inf, np.inf],
         name="hs15-sparse",
     )
+
+
+# Two local optima (docs/src/quickstart.md:28-34): from x0=(0,0) MadNLP
+# converges to (-0.792, -1.262), obj ≈ 360.38; from x0=(1,1) to (0.5, 2),
+# obj = 306.5.
+SOLUTION_OBJ_FROM_ZERO = 360.3797616
+SOLUTION_OBJ_FROM_ONES = 306.5

@@ -1,12 +1,20 @@
-"""Synthetic AC optimal power flow, sparse edge-local form — port of
-``madnlp_tpu/models/instances/opf.py:build_sparse``.
+"""Synthetic AC optimal power flow — port of
+``madnlp_tpu/models/instances/opf.py`` (``build``, ``build_sparse``).
 
 The instance generator (:func:`_network`, :func:`_instance`) is a copy of
 the JAX package's numpy code, so the same ``(nb, seed)`` gives identical
-instance data in both packages.  The derivatives are closed forms of the
-per-edge flows (the JAX package gets the same values by ``vmap`` of
-``jacfwd``/``hessian`` over the edge list): with ``θ = va_i − va_j``,
-``vv = vm_i·vm_j`` and each edge output ``f = vv·h(θ)``,
+instance data in both packages.
+
+:func:`build` is the dense-Ybus model (a :class:`DenseNLPModel`): the bus
+injections ``S = V ∘ conj(Y V)`` as complex128 matrix products, with
+closed-form polar derivatives from Wirtinger calculus (``analytic=True``)
+or derivatives from ``torch.func`` (``analytic=False``).
+
+:func:`build_sparse` is the edge-local sparse model.  Its derivatives are
+closed forms of the per-edge flows (the JAX package gets the same values
+by ``vmap`` of ``jacfwd``/``hessian`` over the edge list): with
+``θ = va_i − va_j``, ``vv = vm_i·vm_j`` and each edge output
+``f = vv·h(θ)``,
 
     ∂f/∂va_i = vv·h'   ∂f/∂va_j = −vv·h'   ∂f/∂vm_i = vm_j·h   ∂f/∂vm_j = vm_i·h
 
@@ -15,8 +23,8 @@ and ``h'' = −h``, so the 4×4 edge Hessian of ``Σ w_o f_o`` needs only
 
 Bus sums of edge flows are gather-sums over a host-built contributor table
 (:mod:`..ops.segment`), so the constraint values are bit-identical from run
-to run on the card.  Every callable broadcasts over a leading lane axis
-(``x (B, n)``), which is how ``solve_batch`` evaluates a batch of
+to run on the card.  Every sparse callable broadcasts over a leading lane
+axis (``x (B, n)``), which is how ``solve_batch`` evaluates a batch of
 scenarios in one pass.
 """
 
@@ -26,7 +34,7 @@ import numpy as np
 import torch
 
 from ...ops.segment import segment_map, segment_sum
-from ..model import DeviceConstants, SparseNLPModel
+from ..model import DenseNLPModel, DeviceConstants, SparseNLPModel
 
 
 def _network(nb: int, rng):
@@ -89,6 +97,152 @@ def _instance(nb: int, seed: int) -> dict:
         Y=Y, ei=ei, ej=ej, ge=ge, be=be, bsh=bsh, ng=ng, gen_bus=gen_bus,
         pg0=pg0, qg0=qg0, Pd=Pd, Qd=Qd, pg_max=pg_max, qg_box=qg_box,
         c2=c2, c1=c1,
+    )
+
+
+def _bounds(nb, ng, pg_max, qg_box):
+    lvar = np.concatenate(
+        [np.full(nb, -np.pi), np.full(nb, 0.9), np.zeros(ng), -qg_box]
+    )
+    uvar = np.concatenate(
+        [np.full(nb, np.pi), np.full(nb, 1.1), pg_max, qg_box]
+    )
+    # slack bus angle fixed at 0
+    lvar[0] = uvar[0] = 0.0
+    return lvar, uvar
+
+
+def build(nb: int = 118, seed: int = 0, parametric: bool = False,
+          analytic: bool = True) -> DenseNLPModel:
+    """Dense-Ybus ACOPF, n = 2·nb + 2·ng variables ``[va, vm, pg, qg]`` and
+    m = 2·nb power-balance rows (same instance as the JAX package's
+    ``opf.build(nb, seed, parametric, analytic)``).
+
+    ``analytic=True`` installs the closed-form polar derivatives: with
+    ``S = diag(V)·conj(Y V)``, ``u = V/vm`` and ``M = diag(V)·conj(Y)·
+    diag(conj V)``,
+
+        dS/dθ  = j·(diag(S) − M)
+        dS/dvm = diag(S/vm) + M·diag(1/vm)
+
+    and, for ``T = Re[wᵀS]`` with ``w = yP − j·yQ``, the Hessian from
+    ``Hc = (diag(w)·conj(Y) + Yᵀ·diag(conj w))/2``, ``g = Hc·conj(V)``,
+    ``Z = diag(V)·Hc·diag(conj V)``:
+
+        H_θθ = 2Re Z − 2 diag(Re[g∘V])
+        H_θv = −2 Im Z·diag(1/vm) − 2 diag(Im[g∘V]/vm)
+        H_vv = 2Re Z ∘ (1/vm)(1/vm)ᵀ
+
+    ``analytic=False`` leaves them to ``torch.func``.  ``parametric=True``:
+    ``params`` is a scalar load-scaling factor multiplying Pd/Qd (the loads
+    enter additively, so the derivatives ignore it)."""
+    data = _instance(nb, seed)
+    ng, gen_bus = int(data["ng"]), np.asarray(data["gen_bus"], np.int64)
+    n = 2 * nb + 2 * ng
+    m = 2 * nb
+    # constant generator jacobian columns: dP_i/dpg_g = -1, dQ/dqg = -1
+    Jg = np.zeros((m, 2 * ng))
+    Jg[gen_bus, np.arange(ng)] = -1.0
+    Jg[nb + gen_bus, ng + np.arange(ng)] = -1.0
+    # bus-by-generator incidence: Pg = A_g·pg without in-place writes, so
+    # that torch.func can differentiate the constraints (analytic=False)
+    Ag = np.zeros((nb, ng))
+    Ag[gen_bus, np.arange(ng)] = 1.0
+    K = DeviceConstants(Y=data["Y"], Ag=Ag, Pd=data["Pd"], Qd=data["Qd"],
+                        c2=data["c2"], c1=data["c1"], Jg=Jg,
+                        gen_diag=2 * nb + np.arange(ng))
+
+    def voltages(x):
+        va, vm = x[:nb], x[nb:2 * nb]
+        return vm, torch.complex(vm * torch.cos(va), vm * torch.sin(va))
+
+    def cons_scaled(x, scale):
+        k = K.on(x.device)
+        _, V = voltages(x)
+        S = V * torch.conj(k.Y @ V)
+        Pg = k.Ag @ x[2 * nb:2 * nb + ng]
+        Qg = k.Ag @ x[2 * nb + ng:]
+        return torch.cat([S.real - Pg + scale * k.Pd,
+                          S.imag - Qg + scale * k.Qd])
+
+    def obj_x(x):
+        k = K.on(x.device)
+        pg = x[2 * nb:2 * nb + ng]
+        return torch.sum(k.c2 * pg**2 + k.c1 * pg)
+
+    def grad_x(x):
+        k = K.on(x.device)
+        g = torch.zeros_like(x)
+        g[2 * nb:2 * nb + ng] = 2.0 * k.c2 * x[2 * nb:2 * nb + ng] + k.c1
+        return g
+
+    def jac_x(x):
+        k = K.on(x.device)
+        vm, V = voltages(x)
+        S = V * torch.conj(k.Y @ V)
+        M = V[:, None] * torch.conj(k.Y) * torch.conj(V)[None, :]
+        dth = 1j * (torch.diag(S) - M)
+        dvm = torch.diag(S / vm) + M / vm[None, :]
+        return torch.cat([torch.cat([dth.real, dvm.real, k.Jg[:nb]], 1),
+                          torch.cat([dth.imag, dvm.imag, k.Jg[nb:]], 1)])
+
+    def hess_x(x, y, obj_weight):
+        k = K.on(x.device)
+        vm, V = voltages(x)
+        w = torch.complex(y[:nb], -y[nb:])
+        Hc = 0.5 * (w[:, None] * torch.conj(k.Y) + k.Y.T * torch.conj(w)[None, :])
+        gV = (Hc @ torch.conj(V)) * V
+        Z = V[:, None] * Hc * torch.conj(V)[None, :]
+        inv_vm = 1.0 / vm
+        Htt = 2.0 * Z.real - 2.0 * torch.diag(gV.real)
+        Htv = -2.0 * Z.imag * inv_vm[None, :] - 2.0 * torch.diag(gV.imag * inv_vm)
+        Hvv = 2.0 * Z.real * (inv_vm[:, None] * inv_vm[None, :])
+        H = x.new_zeros((n, n))
+        H[:nb, :nb] = Htt
+        H[:nb, nb:2 * nb] = Htv
+        H[nb:2 * nb, :nb] = Htv.T
+        H[nb:2 * nb, nb:2 * nb] = Hvv
+        H[k.gen_diag, k.gen_diag] = 2.0 * obj_weight * k.c2
+        return H
+
+    if parametric:
+        def cons(x, scale):
+            return cons_scaled(x, scale)
+
+        def obj(x, scale):
+            return obj_x(x)
+
+        def grad(x, scale):
+            return grad_x(x)
+
+        def jac(x, scale):
+            return jac_x(x)
+
+        def lag_hess(x, y, obj_weight, scale):
+            return hess_x(x, y, obj_weight)
+    else:
+        def cons(x):
+            return cons_scaled(x, 1.0)
+
+        obj, grad, jac, lag_hess = obj_x, grad_x, jac_x, hess_x
+
+    lvar, uvar = _bounds(nb, ng, data["pg_max"], data["qg_box"])
+    return DenseNLPModel(
+        n=n,
+        m=m,
+        obj=obj,
+        cons=cons,
+        grad=grad,
+        jac=jac if analytic else None,
+        lag_hess=lag_hess if analytic else None,
+        x0=np.concatenate([np.zeros(nb), np.ones(nb), data["pg0"],
+                           data["qg0"]]),
+        lvar=lvar,
+        uvar=uvar,
+        lcon=np.zeros(m),
+        ucon=np.zeros(m),
+        params=np.ones(()) if parametric else None,
+        name=f"synthetic_acopf_nb{nb}",
     )
 
 

@@ -56,21 +56,22 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the banded CUDA kernels cannot be built")
 
 
-def build(force: bool = False, ptxas_info: bool = False) -> str:
-    """Compile ``csrc/banded_ldlt.cu`` unless an up-to-date library exists;
-    returns the library path.  The library is written under a temporary
-    name and renamed, so concurrent builds never load a partial file.
-    ``ptxas_info`` prints each kernel's registers, shared memory and
-    spills as ``nvcc -Xptxas -v`` reports them."""
-    fresh = (os.path.exists(LIBRARY)
-             and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE))
+def compile_library(source: str, library: str, force: bool = False,
+                    ptxas_info: bool = False) -> str:
+    """Compile the CUDA ``source`` into the shared ``library`` (sm_90a)
+    unless an up-to-date one exists; returns its path.  The library is
+    written under a temporary name and renamed, so concurrent builds never
+    load a partial file.  ``ptxas_info`` prints each kernel's registers,
+    shared memory and spills as ``nvcc -Xptxas -v`` reports them."""
+    fresh = (os.path.exists(library)
+             and os.path.getmtime(library) >= os.path.getmtime(source))
     if fresh and not force:
-        return LIBRARY
+        return library
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, source]
     if ptxas_info:
         cmd[1:1] = ["-Xptxas", "-v"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -79,8 +80,13 @@ def build(force: bool = False, ptxas_info: bool = False) -> str:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     if ptxas_info:
         print(proc.stderr, flush=True)
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    os.replace(tmp, library)
+    return library
+
+
+def build(force: bool = False, ptxas_info: bool = False) -> str:
+    """Compile ``csrc/banded_ldlt.cu`` (see :func:`compile_library`)."""
+    return compile_library(SOURCE, LIBRARY, force, ptxas_info)
 
 
 def load():

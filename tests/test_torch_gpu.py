@@ -1,7 +1,8 @@
-"""The Hopper kernels of the port (madnlp_tpu_torch/csrc/banded_ldlt.cu)
-against their plain PyTorch versions, on the card: K1/K2 (one system) and
-K3/K4 (a batch of lanes under an active mask, also held against K1/K2 on
-each lane).
+"""The Hopper kernels of the port against their plain PyTorch versions, on
+the card: K1/K2 (one system) and K3/K4 (a batch of lanes under an active
+mask, also held against K1/K2 on each lane) of csrc/banded_ldlt.cu, and
+K7, the whole-matrix dense LDLᵀ of csrc/dense_ldlt.cu; and small solves of
+the sparse, batched and dense paths on the card against the CPU.
 
 Run on a machine with an NVIDIA GPU and nvcc (``--noconftest`` skips
 tests/conftest.py, which imports JAX):
@@ -10,9 +11,9 @@ tests/conftest.py, which imports JAX):
 
 Each test decides for itself whether a card is present and skips without
 one.  Tolerances are normwise relative, kernel vs plain on strictly
-diagonally dominant indefinite band matrices, where only the order of
-summation differs: 1e-10 in float64, 1e-4 in float32.  Inertia must agree
-exactly.
+diagonally dominant indefinite band matrices and on well-conditioned
+saddle matrices, where only the order of summation differs: 1e-10 in
+float64, 1e-4 in float32.  Inertia must agree exactly.
 """
 
 import numpy as np
@@ -23,6 +24,8 @@ import madnlp_tpu_torch as T
 from madnlp_tpu_torch.models.instances import opf
 from madnlp_tpu_torch.ops import banded as plain
 from madnlp_tpu_torch.ops import banded_kernels as bk
+from madnlp_tpu_torch.ops import dense_kernels as dk
+from madnlp_tpu_torch.ops.ldlt import ldlt_inertia
 from madnlp_tpu_torch.testing import band_system
 
 pytestmark = pytest.mark.gpu
@@ -204,3 +207,67 @@ def test_solve_batch_on_the_card_matches_the_cpu():
     assert counts["banded_factorize_batched_cuda"] > 0
     assert counts["banded_solve_batched_cuda"] > 0
     assert counts["banded_factorize_cuda"] == counts["banded_solve_cuda"] == 0
+
+
+def _saddle(N, seed, dtype, zero_row=None):
+    """A seeded saddle matrix [[H, Jᵀ], [J, -1e-3·I]] (H SPD, N/4 rows of
+    J) on the card; ``zero_row`` zeroes a row and column (a zero pivot)."""
+    rng = np.random.default_rng(seed)
+    m = N // 4
+    R = rng.standard_normal((N - m, N - m))
+    J = rng.standard_normal((m, N - m))
+    K = np.block([[R @ R.T + N * np.eye(N - m), J.T], [J, -1e-3 * np.eye(m)]])
+    if zero_row is not None:
+        K[zero_row, :] = 0.0
+        K[:, zero_row] = 0.0
+    return torch.as_tensor(K, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,block,zero_row", [(128, 128, None), (300, 128, 70),
+                                              (700, 64, None), (97, 32, 40)])
+def test_dense_ldlt_kernel_matches_plain(N, block, zero_row, dtype):
+    _need_cuda()
+    K = _saddle(N, N + block, dtype, zero_row)
+    before = dk.dense_ldlt_cuda.launches
+    kf = dk.dense_ldlt(K, block)
+    pf = dk.dense_ldlt_plain(K, block)
+    torch.cuda.synchronize()
+    assert dk.dense_ldlt_cuda.launches == before + 1
+    assert _rel(torch.tril(kf.L[:N, :N], -1), torch.tril(pf.L[:N, :N], -1)) \
+        < RTOL[dtype]
+    assert _rel(kf.d[:N], pf.d[:N]) < RTOL[dtype]
+    m = N // 4
+    expect = (N - m, 0, m) if zero_row is None else (N - m - 1, 1, m)
+    assert ldlt_inertia(kf) == ldlt_inertia(pf) == expect
+
+
+def test_dense_ldlt_wrapper_checks_its_inputs():
+    _need_cuda()
+    K = _saddle(256, 1, torch.float64)
+    with pytest.raises(TypeError):
+        dk.dense_ldlt_cuda(K.half(), 128)
+    with pytest.raises(ValueError):
+        dk.dense_ldlt_cuda(K[:, :128].contiguous(), 128)
+    with pytest.raises(ValueError):
+        dk.dense_ldlt_cuda(K.T[::2, ::2], 128)
+    with pytest.raises(ValueError):
+        dk.dense_ldlt_cuda(K, 256)
+    with pytest.raises(ValueError):
+        dk.dense_ldlt_cuda(K.cpu(), 128)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_dense_solve_on_the_card_matches_the_cpu(dtype):
+    _need_cuda()
+    opts = dict(dtype=dtype, print_level=T.PrintLevel.ERROR)
+    cpu = T.madnlp(opf.build(nb=30, seed=1), device="cpu", **opts)
+    bk.reset_counts()
+    dk.reset_counts()
+    gpu = T.madnlp(opf.build(nb=30, seed=1), **opts)
+    assert gpu.status == cpu.status == T.Status.SOLVE_SUCCEEDED
+    assert gpu.iter == cpu.iter
+    assert gpu.counters["factorization_cnt"] == cpu.counters["factorization_cnt"]
+    assert abs(gpu.objective - cpu.objective) <= 1e-8 * abs(cpu.objective)
+    # the dense path factors with ldlt_factorize, not with a kernel
+    assert not any({**bk.counts(), **dk.counts()}.values())

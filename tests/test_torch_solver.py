@@ -180,7 +180,7 @@ def test_entry_points_need_cuda_unless_told():
 
 
 @pytest.mark.parametrize("opts", [
-    dict(linear_solver=T.LinearSolver.LDL),
+    dict(linear_solver=T.LinearSolver.HYKKT),
     dict(kkt_system=T.KKTSystem.SPARSE_CONDENSED),
     dict(barrier=BarrierUpdate.QUALITY_FUNCTION),
     dict(hessian_approximation=HessianApproximation.COMPACT_LBFGS),
