@@ -9,7 +9,8 @@ Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero without a result):
 
 1. ``device``  — CUDA must be available; the card's name and power limit.
-2. ``build``   — nvcc builds ``madnlp_tpu_torch/csrc/banded_ldlt.cu`` and
+2. ``build``   — nvcc builds ``madnlp_tpu_torch/csrc/banded_ldlt.cu``,
+   ``madnlp_tpu_torch/csrc/banded_fused.cu`` and
    ``madnlp_tpu_torch/csrc/dense_ldlt.cu``, one process each, side by side.
 3. ``kernels`` — the banded LDLᵀ kernels K1 (factorize) and K2 (solve)
    against their plain PyTorch versions on the card, float32 and float64,
@@ -21,6 +22,12 @@ script exits non-zero without a result):
    inertia must come out per lane; one case per dtype runs with lane 0
    inactive, whose band, invL, pivots and right-hand side must come back
    bit for bit.
+   ``fused_kernels``: the whole-band kernels K5 (factorize, one launch)
+   and K6 (solve) against their plain versions and against K1 / K2 on the
+   same bands, float32 and float64, at the four geometries and case118's
+   (64, 5, 10), on a dominant band and one with a zero pivot, k = 1, 8 and
+   130 right-hand sides; then the CUDA launches of one K5 call counted by
+   torch.profiler (one) beside one K1 call's (4·nb).
 4. ``solve``   — the flagship sparse ACOPF (``opf.build_sparse(nb=600,
    seed=0)``, banded KKT, μ-scaled Richardson) solved on the card in
    float64 (which also warms the card up) and then float32, the main path,
@@ -49,6 +56,19 @@ script exits non-zero without a result):
    band of every lane (float64), then timed against 16 sequential K1 / K2
    launches on the same bands; one bulk run under torch.profiler.
 
+   ``matpower_solve``: the MATPOWER front end and the JAX package's bench
+   primary, ``build_acopf(tile_case(parse_case("tests/data/case118.m"), 4,
+   ties="ring"), sparse=True)`` (banded KKT, μ-scaled Richardson) on the
+   card in float64 and float32, each against the JAX package's CPU results
+   (``MATPOWER_REFERENCE``) and the published optimum 4 × 129660.70; K1 /
+   K2 launches over the float32 solve (K5 / K6 never); a repeat bit for
+   bit; ``TIMED_SOLVES`` warmed float32 solves for the median iter/s; one
+   under torch.profiler.
+   ``case118_band``: a float32 case118 solve (held to the JAX package) whose
+   last KKT band goes through K5 / K6 (their op path: counts set to 0 just
+   before, one launch each read just after), their plain versions and K1 /
+   K2: agreement in float64 within ``REAL_BAND_RTOL``, inertia equal, and
+   each timed by CUDA events beside its bound.
 6. ``dense_kernels`` — the whole-matrix dense LDLᵀ kernel K7 against its
    plain PyTorch version on the card, float32 and float64, block 128, at
    N = 128, 300, 1024 and 2674 (the dense nb=600 system), on an indefinite
@@ -119,6 +139,42 @@ KERNEL_RTOL = {"float32": 1e-4, "float64": 1e-10}
 REAL_BAND_RTOL = 1e-6
 # warmed float32 solves timed for the end-to-end iter/s (median and spread)
 TIMED_SOLVES = 7
+# K5 / K6 at the kernel phase's geometries and case118's own (N = 580:
+# b = 64, bw = 5, nb = 10), right-hand sides of 1, 8 and 130 columns
+FUSED_GEOMETRIES = GEOMETRIES + [(64, 5, 10)]
+FUSED_WIDTHS = (1, 8, 130)
+
+# The MATPOWER path: the JAX package's results on the CPU, (status,
+# iterations, factorization_cnt, backsolve_cnt, objective), from
+#   JAX_PLATFORMS=cpu python -c 'import madnlp_tpu as M; from madnlp_tpu.models import matpower as mp;
+#   from madnlp_tpu.utils.options import RichardsonOptions as R;
+#   c = mp.parse_case("tests/data/case118.m"); c = mp.tile_case(c, 4, ties="ring") if RING else c;
+#   s = M.madnlp(mp.build_acopf(c, sparse=True), linear_solver=M.LinearSolver.BANDED,
+#                dtype=DT, richardson=R(mu_scaled=True), banded_backend=BACKEND);
+#   print(s.status.name, s.iter, s.counters["factorization_cnt"],
+#         s.counters["backsolve_cnt"], repr(s.objective))'
+# with BACKEND="pallas_interpret" in float32: the TPU kernel's panel-blocked
+# factorization order, which the port follows (the default "auto" runs the
+# XLA band loop on the CPU, another order: MATPOWER_XLA_FLOAT32, reported
+# beside).  float64 is held exactly (objective within OBJ_RTOL; both
+# backends give the same counts); float32 status, iterations and
+# factorizations exactly, backsolves within BACKSOLVE_RTOL.
+MATPOWER_REFERENCE = {
+    ("case118x4_ring", "float64"): ("SOLVE_SUCCEEDED", 15, 15, 16,
+                                    518642.7397434097),
+    ("case118x4_ring", "float32"): ("SOLVE_SUCCEEDED", 15, 15, 35,
+                                    518642.7397434094),
+    ("case118", "float32"): ("SOLVE_SUCCEEDED", 15, 15, 34,
+                             129660.68493585243),
+}
+MATPOWER_XLA_FLOAT32 = {
+    "case118x4_ring": ("SOLVE_SUCCEEDED", 15, 15, 34, 518642.73974340927),
+    "case118": ("SOLVE_SUCCEEDED", 15, 15, 37, 129660.68493585243),
+}
+# MATPOWER's published case118 optimum ($/hr, tests/test_realcases.py): the
+# ring of four copies has exactly four times it by symmetry
+PUBLISHED_OPTIMUM = {"case118x4_ring": 4 * 129660.70, "case118": 129660.70}
+PUBLISHED_RTOL = 1e-6
 
 # The batched path: 16 load scales of the parametric flagship model, and
 # the JAX package's batch of them on the CPU, from
@@ -234,17 +290,19 @@ def phase_device(torch):
 
 
 def phase_build():
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
     from madnlp_tpu_torch.ops import banded_kernels as bk
     from madnlp_tpu_torch.ops import dense_kernels as dk
 
     t = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    modules = (bk, bf, dk)
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
         futures = [pool.submit(m.build, force=True, ptxas_info=True)
-                   for m in (bk, dk)]
+                   for m in modules]
         paths = [f.result() for f in futures]
-    bk.load()
-    dk.load()
+    for m in modules:
+        m.load()
     emit({"phase": "build",
           "libraries": [os.path.relpath(p, HERE) for p in paths],
           "seconds": time.perf_counter() - t})
@@ -449,15 +507,139 @@ def phase_kernels(torch):
     return worst
 
 
+# -- 3b. the whole-band kernels K5 / K6 on seeded systems ----------------------
+
+
+def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
+    """K5 and K6 against their plain versions, and against K1 and K2 (the
+    same function), on one band on the card; K6 and K2 at each right-hand
+    side width in ``widths``.  Returns the errors over the real block
+    columns and the three inertias."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    nb = struct.nb
+    ff = bf.banded_fused_factorize(struct, band.clone())
+    pf = bf.banded_fused_factorize_plain(struct, band)
+    kf = bk.factorize(struct, band.clone())
+    pairs = {"band": (ff.band[:nb], pf.band[:nb]),
+             "invL": (ff.invL[:nb], pf.invL[:nb]), "d": (ff.d, pf.d)}
+    vs_k1_k2 = {"band": (ff.band[:nb], kf.band[:nb]),
+                "invL": (ff.invL[:nb], kf.invL[:nb]), "d": (ff.d, kf.d)}
+    rng = np.random.default_rng(nb * struct.b + struct.bw)
+    for k in widths:
+        rhs = torch.as_tensor(
+            rng.standard_normal(struct.N if k == 1 else (struct.N, k)),
+            dtype=band.dtype, device=band.device)
+        fx = bf.banded_fused_solve(struct, ff, rhs)
+        pairs[f"solve_k{k}"] = (fx, bf.banded_fused_solve_plain(struct, ff, rhs))
+        # K2 holds 2·b·k values of the right-hand side in one CTA's shared
+        # memory: eight columns at a time
+        kx = (bk.solve(struct, kf, rhs) if k == 1 else torch.cat(
+            [bk.solve(struct, kf, rhs[:, i:i + 8]) for i in range(0, k, 8)], 1))
+        vs_k1_k2[f"solve_k{k}"] = (fx, kx)
+    torch.cuda.synchronize()
+    return {
+        "rel": {k: _rel(*v) for k, v in pairs.items()},
+        "abs": {k: _abs(*v) for k, v in pairs.items()},
+        "rel_vs_K1_K2": {k: _rel(*v) for k, v in vs_k1_k2.items()},
+        "inertia": [plain.banded_inertia(struct, f) for f in (ff, pf, kf)],
+        "finite": bool(torch.isfinite(ff.band[:nb]).all()
+                       and all(torch.isfinite(v[0]).all()
+                               for k, v in pairs.items()
+                               if k.startswith("solve"))),
+    }
+
+
+def _check_fused(res, tol, where):
+    if not res["finite"]:
+        raise AssertionError(f"non-finite K5/K6 output at {where}")
+    if max(res["rel"].values()) > tol:
+        raise AssertionError(f"K5/K6 disagree with plain at {where}")
+    if max(res["rel_vs_K1_K2"].values()) > tol:
+        raise AssertionError(f"K5/K6 disagree with K1/K2 at {where}")
+    if len(set(res["inertia"])) != 1:
+        raise AssertionError(f"K5 inertia differs at {where}: {res['inertia']}")
+
+
+def phase_fused_kernels(torch):
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+    from madnlp_tpu_torch.testing import band_system
+
+    worst = {}
+    for (b, bw, nb) in FUSED_GEOMETRIES:
+        for dtype_name in ("float32", "float64"):
+            tol = KERNEL_RTOL[dtype_name]
+            # N = nb·b − b/2 leaves a padded tail block
+            N = nb * b - b // 2
+            for zero_row in (None, N // 2):
+                rows, cols, vals = band_system(b + 7 * bw + nb + 1, N, b, bw,
+                                               zero_row=zero_row)
+                st = plain.BandStructure(rows, cols, N, block=b,
+                                         perm=np.arange(N))
+                if (st.b, st.bw, st.nb) != (b, bw, nb):
+                    raise AssertionError(f"geometry {(st.b, st.bw, st.nb)} "
+                                         f"!= {(b, bw, nb)}")
+                band = st.assembly(st.map(rows, cols), "cpu")(
+                    torch.as_tensor(vals)).to(getattr(torch, dtype_name)).cuda()
+                res = compare_fused(torch, st, band)
+                where = (b, bw, nb, dtype_name, zero_row)
+                emit({"phase": "fused_kernels", "b": b, "bw": bw, "nb": nb,
+                      "N": N, "dtype": dtype_name, "zero_row": zero_row,
+                      "staged": bf.staged(b, band.dtype),
+                      "max_rel_err": res["rel"],
+                      "max_rel_err_vs_K1_K2": res["rel_vs_K1_K2"], "tol": tol,
+                      "inertia (K5, plain, K1)": res["inertia"]})
+                _check_fused(res, tol, where)
+                if zero_row is not None and res["inertia"][0][1] != 1:
+                    raise AssertionError(f"the zero pivot was not counted at "
+                                         f"{where}")
+                if (b, bw, nb) == FUSED_GEOMETRIES[-1] and \
+                        dtype_name == "float32":
+                    a = res["abs"]
+                    worst["K5"] = max(worst.get("K5", 0.0),
+                                      *(a[k] for k in ("band", "invL", "d")))
+                    worst["K6"] = max(worst.get("K6", 0.0),
+                                      *(v for k, v in a.items()
+                                        if k.startswith("solve")))
+
+    # one K5 call is one CUDA kernel launch; one K1 call is 4·nb (on the
+    # loop's last band, case118's geometry)
+    b, bw, nb = FUSED_GEOMETRIES[-1]
+    work = band.float().contiguous()
+    invL = torch.zeros((st.nbp, b, b), dtype=work.dtype, device=work.device)
+    d = torch.ones((st.nbp * b,), dtype=work.dtype, device=work.device)
+    launches = {
+        "K5": _count_launches(torch, lambda: bf.banded_fused_factorize_cuda(
+            work, invL, d, nb, b, bw)),
+        "K1": _count_launches(torch, lambda: bk.banded_factorize_cuda(
+            work, invL, d, nb, b, bw)),
+    }
+    emit({"phase": "fused_kernels", "b": b, "bw": bw, "nb": nb,
+          "device_launches_per_call": launches})
+    if launches["K5"] != 1:
+        raise AssertionError(f"one K5 call made {launches['K5']} launches")
+    return worst
+
+
 # -- 4. the flagship solve -----------------------------------------------------
 
 
-def _solve(torch, port, dtype, keep_band=None):
+def _solve(torch, port, dtype, keep_band=None, model=None):
+    """One banded solve of ``model`` (the flagship nb=600 ACOPF by default)
+    on the card, model and symbolic set-up excluded from the wall, the
+    kernels' counts set to 0 just before it.  Returns (stats, wall, (K1,
+    K2) launches); ``keep_band`` collects the last band factorized."""
     from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
     from madnlp_tpu_torch.ops import banded_kernels as bk
 
     solver = port.MadNLPSolver(
-        opf.build_sparse(nb=600, seed=0), device="cuda",
+        opf.build_sparse(nb=600, seed=0) if model is None else model,
+        device="cuda",
         linear_solver=port.LinearSolver.BANDED, dtype=dtype,
         richardson=port.RichardsonOptions(mu_scaled=True),
         print_level=port.PrintLevel.ERROR)
@@ -469,6 +651,7 @@ def _solve(torch, port, dtype, keep_band=None):
         bk.factorize = keeping
     torch.cuda.synchronize()
     bk.reset_counts()
+    bf.reset_counts()
     t = time.perf_counter()
     try:
         stats = solver.solve()
@@ -908,6 +1091,180 @@ def phase_batch(torch, port, single_iter_per_s):
             "times": times, "bounds": bounds}
 
 
+# -- 5b. the MATPOWER front end: the case118×4 ring and case118 ----------------
+
+
+def _matpower_model(name):
+    from madnlp_tpu_torch.models import matpower
+
+    case = matpower.parse_case(os.path.join(HERE, "tests", "data", "case118.m"))
+    if name == "case118x4_ring":
+        case = matpower.tile_case(case, 4, ties="ring")
+    return matpower.build_acopf(case, sparse=True)
+
+
+def _check_matpower(name, dtype, stats, launches, fused):
+    status, iters, facts, backs, obj = MATPOWER_REFERENCE[name, dtype]
+    c = stats.counters
+    got = (stats.status.name, stats.iter, c["factorization_cnt"])
+    if got != (status, iters, facts):
+        raise AssertionError(f"{name} {dtype}: {got}, JAX {(status, iters, facts)}")
+    tol = BACKSOLVE_RTOL if dtype == "float32" else 0.0
+    if abs(c["backsolve_cnt"] - backs) > tol * backs:
+        raise AssertionError(f"{name} {dtype}: {c['backsolve_cnt']} backsolves, "
+                             f"JAX {backs}")
+    if abs(stats.objective - obj) > OBJ_RTOL * abs(obj):
+        raise AssertionError(f"{name} {dtype}: objective {stats.objective!r}, "
+                             f"JAX {obj!r}")
+    pub = PUBLISHED_OPTIMUM[name]
+    if abs(stats.objective - pub) > PUBLISHED_RTOL * pub:
+        raise AssertionError(f"{name} {dtype}: objective {stats.objective!r}, "
+                             f"published {pub!r}")
+    if not np.isfinite(stats.solution).all():
+        raise AssertionError(f"{name} {dtype}: non-finite solution")
+    # +1: the least-squares dual initialization factorizes once, uncounted
+    if launches[0] != facts + 1 or launches[1] < c["backsolve_cnt"]:
+        raise AssertionError(f"{name} {dtype}: K1/K2 launched {launches}")
+    if any(fused.values()):
+        raise AssertionError(f"{name} {dtype}: K5/K6 ran on a solve: {fused}")
+
+
+def phase_matpower_solve(torch, port):
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+
+    name = "case118x4_ring"
+    model = _matpower_model(name)
+    out = {}
+    for dtype in ("float64", "float32"):
+        # the kernels' counts are set to 0 inside _solve, just before
+        stats, wall, launches = _solve(torch, port, dtype, model=model)
+        fused = bf.counts()
+        _check_matpower(name, dtype, stats, launches, fused)
+        emit({"phase": "matpower_solve", "case": name, "n": model.n,
+              "m": model.m, "dtype": dtype, "status": stats.status.name,
+              "iter": stats.iter, "objective": stats.objective,
+              "reference": MATPOWER_REFERENCE[name, dtype],
+              "reference_xla": (MATPOWER_XLA_FLOAT32[name]
+                                if dtype == "float32" else None),
+              "published": PUBLISHED_OPTIMUM[name], "counters": stats.counters,
+              "K1_launches": launches[0], "K2_launches": launches[1],
+              "K5_K6_launches": fused, "wall_s": wall,
+              "iter_per_s": stats.iter / wall})
+        out[dtype] = (stats, launches)
+        again, wall2, _ = _solve(torch, port, dtype, model=model)
+        same = (again.objective == stats.objective
+                and np.array_equal(again.solution, stats.solution)
+                and np.array_equal(again.multipliers, stats.multipliers)
+                and again.counters == stats.counters)
+        emit({"phase": "matpower_solve", "case": name, "dtype": dtype,
+              "repeat": True, "bit_identical": same, "wall_s": wall2})
+        if not same:
+            raise AssertionError(f"the repeated {name} {dtype} solve differs")
+    first = out["float32"][0]
+
+    walls = []
+    for _ in range(TIMED_SOLVES):
+        again, w, _ = _solve(torch, port, "float32", model=model)
+        if not (again.objective == first.objective
+                and np.array_equal(again.solution, first.solution)
+                and again.counters == first.counters):
+            raise AssertionError(f"a timed {name} float32 solve differs")
+        walls.append(w)
+    med = statistics.median(walls)
+    emit({"phase": "matpower_solve", "case": name, "dtype": "float32",
+          "timed_solves": TIMED_SOLVES, "wall_s": walls, "median_wall_s": med,
+          "iter_per_s_median": first.iter / med,
+          "iter_per_s_min": first.iter / max(walls),
+          "iter_per_s_max": first.iter / min(walls)})
+
+    def run():
+        stats, wall, _ = _solve(torch, port, "float32", model=model)
+        return stats.iter, wall
+    emit(dict(phase="matpower_profile", case=name, dtype="float32",
+              **_profile(torch, port, run)))
+    return {"launches": out["float32"][1], "iter_per_s_median": first.iter / med}
+
+
+def phase_case118_band(torch, port):
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    name = "case118"
+    kept = {}
+    stats, wall, launches = _solve(torch, port, "float32", keep_band=kept,
+                                   model=_matpower_model(name))
+    _check_matpower(name, "float32", stats, launches, bf.counts())
+    emit({"phase": "case118_band", "dtype": "float32",
+          "status": stats.status.name, "iter": stats.iter,
+          "objective": stats.objective,
+          "reference": MATPOWER_REFERENCE[name, "float32"],
+          "reference_xla": MATPOWER_XLA_FLOAT32[name],
+          "counters": stats.counters, "wall_s": wall})
+    st, band32 = kept["struct"], kept["band"]
+    b, bw, nb = st.b, st.bw, st.nb
+
+    # K5 / K6 on their op path: counts from 0 just before, read just after
+    rhs = torch.as_tensor(np.random.default_rng(11).standard_normal(st.N),
+                          dtype=band32.dtype, device=band32.device)
+    bf.reset_counts()
+    f = bf.banded_fused_factorize(st, band32.clone())
+    bf.banded_fused_solve(st, f, rhs)
+    torch.cuda.synchronize()
+    op_launches = (bf.banded_fused_factorize_cuda.launches,
+                   bf.banded_fused_solve_cuda.launches)
+    if op_launches != (1, 1):
+        raise AssertionError(f"K5/K6 op path launched {op_launches}")
+
+    real64 = compare_fused(torch, st, band32.double(), widths=(1, 8))
+    real32 = compare_fused(torch, st, band32, widths=(1, 8))
+    emit({"phase": "case118_band", "b": b, "bw": bw, "nb": nb, "N": st.N,
+          "staged": bf.staged(b, band32.dtype),
+          "float64_max_rel_err": real64["rel"],
+          "float64_max_rel_err_vs_K1_K2": real64["rel_vs_K1_K2"],
+          "float64_tol": REAL_BAND_RTOL,
+          "float32_max_rel_err (reported)": real32["rel"],
+          "float32_max_rel_err_vs_K1_K2 (reported)": real32["rel_vs_K1_K2"],
+          "inertia_float64 (K5, plain, K1)": real64["inertia"],
+          "inertia_float32 (K5, plain, K1)": real32["inertia"]})
+    _check_fused(real64, REAL_BAND_RTOL, "the case118 band")
+
+    work = torch.empty_like(band32)
+    invL = torch.zeros((st.nbp, b, b), dtype=band32.dtype, device=band32.device)
+    d = torch.ones((st.nbp * b,), dtype=band32.dtype, device=band32.device)
+    xw, dpad = bf._padded(st, f, rhs)
+    xrhs = xw.clone()
+    r1 = xrhs[:, :1].contiguous()
+    rw = torch.empty_like(r1)
+    times = {
+        "K5": _time_events(
+            torch, lambda: bf.banded_fused_factorize_cuda(work, invL, d, nb, b, bw),
+            lambda: work.copy_(band32), 30),
+        "K5_plain": _time_events(
+            torch, lambda: bf.banded_fused_factorize_plain(st, band32),
+            lambda: None, 5),
+        "K1": _time_events(
+            torch, lambda: bk.banded_factorize_cuda(work, invL, d, nb, b, bw),
+            lambda: work.copy_(band32), 30),
+        "K6": _time_events(
+            torch, lambda: bf.banded_fused_solve_cuda(f.band, f.invL, dpad, xw),
+            lambda: xw.copy_(xrhs), 100),
+        "K6_plain": _time_events(
+            torch, lambda: bf.banded_fused_solve_plain(st, f, rhs),
+            lambda: None, 20),
+        "K2": _time_events(
+            torch, lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rw),
+            lambda: rw.copy_(r1), 100),
+    }
+    # K5 computes K1's function and K6 K2's (one right-hand side)
+    bounds = _bounds(nb, b, bw, band32.element_size(), "float32")
+    bounds = {"K5": bounds["K1"], "K6": bounds["K2"]}
+    emit({"phase": "case118_timing", "dtype": "float32", "b": b, "bw": bw,
+          "nb": nb, "ms": times, "bounds": bounds,
+          "K5_over_K1": times["K5"] / times["K1"],
+          "K6_over_K2": times["K6"] / times["K2"]})
+    return {"launches": op_launches, "times": times, "bounds": bounds}
+
+
 # -- 6. the dense LDLᵀ kernel K7 on seeded matrices ----------------------------
 
 
@@ -1200,8 +1557,11 @@ def main():
     smi = phase_device(torch)
     phase_build()
     worst = phase_kernels(torch)
+    worst.update(phase_fused_kernels(torch))
     solve = phase_solve(torch, port)
     batch = phase_batch(torch, port, solve["iter_per_s_median"])
+    phase_matpower_solve(torch, port)
+    band118 = phase_case118_band(torch, port)
     worst["K7"] = phase_dense_kernels(torch)
     dense = phase_dense_solve(torch, port)
     main_matrix = phase_dense_main_matrix(torch, dense["K"])
@@ -1221,6 +1581,23 @@ def main():
             "ms": path["times"][key], "plain_ms": path["times"][key + "_plain"],
             "bound_ms": path["bounds"][key]["bound_ms"],
             "bound_by": path["bounds"][key]["bound_by"],
+            "library_ms": None,
+        })
+    for i, (name, key, line) in enumerate((
+            ("banded_fused_factorize_cuda", "K5", 251),
+            ("banded_fused_solve_cuda", "K6", 322))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "madnlp_tpu_torch/csrc/banded_fused.cu",
+            "replaces": f"madnlp_tpu/ops/pallas_banded.py:{line}",
+            # K5 / K6 are ops of their own (0 launches on every solve
+            # path); this is their op path's count on the case118 band
+            "launches": band118["launches"][i],
+            "max_abs_err": worst[key],
+            "ms": band118["times"][key],
+            "plain_ms": band118["times"][key + "_plain"],
+            "bound_ms": band118["bounds"][key]["bound_ms"],
+            "bound_by": band118["bounds"][key]["bound_by"],
             "library_ms": None,
         })
     kernels.append({

@@ -2,12 +2,15 @@
 
 The filter line-search interior-point method of ``madnlp_tpu`` on PyTorch
 tensors, with the TPU kernels of the JAX package written by hand for NVIDIA
-Hopper (``csrc/``): the banded sparse direct factorization and the
-whole-matrix dense LDLᵀ.  The JAX package is the reference this port is
-held against; the port imports nothing of it.
+Hopper (``csrc/``): the banded sparse direct factorization (streaming,
+batched and whole-band) and the whole-matrix dense LDLᵀ.  The JAX package
+is the reference this port is held against; the port imports nothing of
+it.
 
 Models come in as dense callbacks (``create_model``, derivatives from
-``torch.func``) or sparse ones (``SparseNLPModel``).  Solver state,
+``torch.func``), sparse ones (``SparseNLPModel``) or MATPOWER case files
+(``models.matpower``, which the package root does not re-export, as in
+the JAX package).  Solver state,
 residuals and iterative refinement are float64; only the KKT factor and
 its solves use ``opts.dtype``.  Float32 products must be true float32, so
 TF32 is switched off here.

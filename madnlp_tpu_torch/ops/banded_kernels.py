@@ -28,6 +28,7 @@ until a CUDA tensor arrives.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -63,8 +64,10 @@ def compile_library(source: str, library: str, force: bool = False,
     written under a temporary name and renamed, so concurrent builds never
     load a partial file.  ``ptxas_info`` prints each kernel's registers,
     shared memory and spills as ``nvcc -Xptxas -v`` reports them."""
-    fresh = (os.path.exists(library)
-             and os.path.getmtime(library) >= os.path.getmtime(source))
+    # the sources include headers of their directory (csrc/*.cuh)
+    deps = [source] + glob.glob(os.path.join(os.path.dirname(source), "*.cuh"))
+    fresh = (os.path.exists(library) and os.path.getmtime(library)
+             >= max(os.path.getmtime(p) for p in deps))
     if fresh and not force:
         return library
     os.makedirs(BUILD_DIR, exist_ok=True)

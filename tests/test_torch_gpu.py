@@ -1,8 +1,11 @@
 """The Hopper kernels of the port against their plain PyTorch versions, on
 the card: K1/K2 (one system) and K3/K4 (a batch of lanes under an active
-mask, also held against K1/K2 on each lane) of csrc/banded_ldlt.cu, and
-K7, the whole-matrix dense LDLᵀ of csrc/dense_ldlt.cu; and small solves of
-the sparse, batched and dense paths on the card against the CPU.
+mask, also held against K1/K2 on each lane) of csrc/banded_ldlt.cu, K5/K6
+(the whole-band factorize in one launch and the column-tiled solve) of
+csrc/banded_fused.cu, and K7, the whole-matrix dense LDLᵀ of
+csrc/dense_ldlt.cu; small solves of the sparse, batched and dense paths
+on the card against the CPU; and the case118 bench-configuration solve
+on the card against the JAX package's numbers.
 
 Run on a machine with an NVIDIA GPU and nvcc (``--noconftest`` skips
 tests/conftest.py, which imports JAX):
@@ -16,13 +19,17 @@ saddle matrices, where only the order of summation differs: 1e-10 in
 float64, 1e-4 in float32.  Inertia must agree exactly.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import madnlp_tpu_torch as T
+from madnlp_tpu_torch.models import matpower
 from madnlp_tpu_torch.models.instances import opf
 from madnlp_tpu_torch.ops import banded as plain
+from madnlp_tpu_torch.ops import banded_fused_kernels as bf
 from madnlp_tpu_torch.ops import banded_kernels as bk
 from madnlp_tpu_torch.ops import dense_kernels as dk
 from madnlp_tpu_torch.ops.ldlt import ldlt_inertia
@@ -271,3 +278,107 @@ def test_dense_solve_on_the_card_matches_the_cpu(dtype):
     assert abs(gpu.objective - cpu.objective) <= 1e-8 * abs(cpu.objective)
     # the dense path factors with ldlt_factorize, not with a kernel
     assert not any({**bk.counts(), **dk.counts()}.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb,zero", [(64, 5, 10, False), (64, 5, 10, True),
+                                          (256, 4, 8, False)])
+def test_fused_kernels_match_plain_and_k1_k2(b, bw, nb, zero, dtype):
+    _need_cuda()
+    N = nb * b - b // 2
+    rows, cols, vals = band_system(b + bw + nb, N, b, bw,
+                                   zero_row=N // 2 if zero else None)
+    st = plain.BandStructure(rows, cols, N, block=b, perm=np.arange(N))
+    band = st.assembly(st.map(rows, cols), "cpu")(
+        torch.as_tensor(vals)).to(dtype).cuda()
+    bf.reset_counts()
+    ff = bf.banded_fused_factorize(st, band.clone())
+    torch.cuda.synchronize()
+    assert bf.counts()["banded_fused_factorize_cuda"] == 1
+    pf = bf.banded_fused_factorize_plain(st, band)
+    kf = bk.factorize(st, band.clone())
+    for ref in (pf, kf):
+        assert _rel(ff.band[:nb], ref.band[:nb]) < RTOL[dtype]
+        assert _rel(ff.invL[:nb], ref.invL[:nb]) < RTOL[dtype]
+        assert _rel(ff.d, ref.d) < RTOL[dtype]
+        assert plain.banded_inertia(st, ff) == plain.banded_inertia(st, ref)
+    assert plain.banded_inertia(st, ff)[1] == (1 if zero else 0)
+    rng = np.random.default_rng(b + nb)
+    for k in (1, 8, 130):
+        rhs = torch.as_tensor(rng.standard_normal(N if k == 1 else (N, k)),
+                              dtype=dtype, device="cuda")
+        x = bf.banded_fused_solve(st, ff, rhs)
+        assert x.shape == rhs.shape
+        assert _rel(x, bf.banded_fused_solve_plain(st, ff, rhs)) < RTOL[dtype]
+        assert _rel(x, _k2_solve(st, kf, rhs)) < RTOL[dtype]
+
+
+def _k2_solve(st, f, rhs):
+    """K2's solve of ``rhs``, eight columns at a time: K2 holds 2·b·k values
+    of the right-hand side in one CTA's shared memory, too many for k = 130
+    at b = 256."""
+    if rhs.ndim == 1:
+        return bk.solve(st, f, rhs)
+    return torch.cat([bk.solve(st, f, rhs[:, i:i + 8])
+                      for i in range(0, rhs.shape[1], 8)], 1)
+
+
+def test_fused_factorize_is_one_launch():
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    b, bw, nb = 64, 5, 10
+    N = nb * b - b // 2
+    rows, cols, vals = band_system(7, N, b, bw)
+    st = plain.BandStructure(rows, cols, N, block=b, perm=np.arange(N))
+    band = st.assembly(st.map(rows, cols), "cpu")(
+        torch.as_tensor(vals)).float().cuda()
+    invL = torch.zeros((st.nbp, b, b), device="cuda")
+    d = torch.ones((st.nbp * b,), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bf.banded_fused_factorize_cuda(band, invL, d, nb, b, bw)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events()
+               if getattr(ev, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [ev.name for ev in kernels]
+
+
+def test_fused_wrappers_check_their_inputs():
+    _need_cuda()
+    st, band = _system(3, 4, 64, 2, torch.float64)
+    invL = torch.zeros((st.nbp, 64, 64), dtype=torch.float64, device="cuda")
+    d = torch.ones((st.nbp * 64,), dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        bf.banded_fused_factorize_cuda(band.half(), invL, d, st.nb, 64, st.bw)
+    with pytest.raises(ValueError):
+        bf.banded_fused_factorize_cuda(band, invL[1:], d, st.nb, 64, st.bw)
+    with pytest.raises(ValueError):
+        bf.banded_fused_solve_cuda(band, invL, d, torch.zeros(
+            (st.nbp * 64, 3), dtype=torch.float64, device="cuda"))
+
+
+# the JAX package's case118 solve on the CPU in the bench configuration
+# (banded KKT, float32, μ-scaled Richardson) in the TPU kernel's
+# factorization order (``banded_backend="pallas_interpret"``), which the
+# port follows: status, iterations, factorizations, backsolves, objective
+# (chip_smoke.py:MATPOWER_REFERENCE)
+CASE118_FLOAT32 = ("SOLVE_SUCCEEDED", 15, 15, 34, 129660.68493585243)
+
+
+def test_case118_bench_solve_on_the_card_matches_jax():
+    _need_cuda()
+    path = os.path.join(os.path.dirname(__file__), "data", "case118.m")
+    bk.reset_counts()
+    bf.reset_counts()
+    s = T.madnlp(matpower.load_acopf(path), linear_solver=T.LinearSolver.BANDED,
+                 dtype="float32", richardson=T.RichardsonOptions(mu_scaled=True),
+                 print_level=T.PrintLevel.ERROR)
+    status, iters, facts, backs, obj = CASE118_FLOAT32
+    assert (s.status.name, s.iter, s.counters["factorization_cnt"]) == \
+        (status, iters, facts)
+    assert abs(s.counters["backsolve_cnt"] - backs) <= 0.06 * backs
+    assert abs(s.objective - obj) <= 1e-8 * abs(obj)
+    assert bk.banded_factorize_cuda.launches == facts + 1
+    assert not any(bf.counts().values())
