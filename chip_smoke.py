@@ -19,19 +19,31 @@ script exits non-zero without a result):
    agree exactly.  Then the batched kernels K3 (factorize) and K4 (solve)
    at B=3 lanes per geometry and dtype against their plain versions and,
    lane by lane, against K1 / K2; lane 1 carries a zero pivot, so the
-   inertia must come out per lane; one case per dtype runs with lane 0
+   inertia must come out per lane; at the main path's geometry each lane's
+   K3 factor must equal K1's bit for bit; one case per dtype runs with lane 0
    inactive, whose band, invL, pivots and right-hand side must come back
    bit for bit.
    ``fused_kernels``: the whole-band kernels K5 (factorize, one launch)
    and K6 (solve) against their plain versions and against K1 / K2 on the
    same bands, float32 and float64, at the four geometries and case118's
    (64, 5, 10), on a dominant band and one with a zero pivot, k = 1, 8 and
-   130 right-hand sides; then the CUDA launches of one K5 call counted by
+   130 right-hand sides; K5 keeps the scalar diagonal step and K1 runs the
+   tiled one, so their factors (band, invL, d on the real columns) must be
+   equal bit for bit; then the CUDA launches of one K5 call counted by
    torch.profiler (one) beside one K1 call's (4·nb).
+   ``diag_step``: the diagonal step of K1 / K3 alone (one CTA per block) at
+   b = 256 on 1 and ``DIAG_LANES`` = 16 seeded diagonal blocks (one with an
+   exactly zero pivot), float32 and float64: the tiled routine against the
+   scalar one, bit for bit, and against the plain version; both timed by
+   CUDA events beside the one-SM bound (the FMAs of the step's loops over
+   one SM's share of the card's peak).
 4. ``solve``   — the flagship sparse ACOPF (``opf.build_sparse(nb=600,
    seed=0)``, banded KKT, μ-scaled Richardson) solved on the card in
    float64 (which also warms the card up) and then float32, the main path,
-   each against the JAX package's CPU results; the kernels' launch counts
+   each against the JAX package's CPU results (``REFERENCE``: status,
+   iterations and factorizations exactly, the objective within 1e-8,
+   float32 backsolves within 6%, float64 backsolves within the one-ulp
+   spread ``FLAGSHIP_FLOAT64_BACKSOLVES``); the kernels' launch counts
    over the float32 solve; the float32 solve repeated, bit for bit; K1/K2
    against the plain versions on the last band of that solve and timed
    there beside their plain versions and their bounds; ``TIMED_SOLVES``
@@ -116,16 +128,38 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # float64 outside the tensor cores (TF32 is ruled out for the factor), HBM3.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
+SMS = 132     # the diagonal step runs on one SM: its peak is PEAK_FLOPS / SMS
 
-# The JAX package's results for the flagship solve on the CPU, from
+# The JAX package's results for the flagship solve on the CPU, (status,
+# iterations, factorization_cnt, backsolve_cnt, objective), from
 #   JAX_PLATFORMS=cpu python -c 'import madnlp_tpu as M; from madnlp_tpu.models.instances import opf;
 #   from madnlp_tpu.utils.options import RichardsonOptions as R;
 #   s = M.madnlp(opf.build_sparse(nb=600, seed=0), linear_solver=M.LinearSolver.BANDED,
-#                dtype=DT, richardson=R(mu_scaled=True)); print(s.iter, repr(s.objective))'
+#                dtype=DT, richardson=R(mu_scaled=True), banded_backend=BACKEND);
+#   print(s.status.name, s.iter, s.counters["factorization_cnt"],
+#         s.counters["backsolve_cnt"], repr(s.objective))'
+# with BACKEND="pallas_interpret" in float32 (the TPU kernel's factorization
+# order, which the port follows; the XLA band loop's counts,
+# FLAGSHIP_XLA_FLOAT32, are reported beside) and "auto" in float64 (both
+# backends take 25, 25, 29).  Status, iterations and factorizations are
+# held exactly, the objective within OBJ_RTOL; float32 backsolves within
+# BACKSOLVE_RTOL, float64 backsolves within FLAGSHIP_FLOAT64_BACKSOLVES.
 REFERENCE = {
-    "float32": (25, 583.7230018594349),
-    "float64": (25, 583.7230018594349),
+    "float32": ("SOLVE_SUCCEEDED", 25, 25, 64, 583.7230018594354),
+    "float64": ("SOLVE_SUCCEEDED", 25, 25, 29, 583.7230018594349),
 }
+FLAGSHIP_XLA_FLOAT32 = ("SOLVE_SUCCEEDED", 25, 25, 63, 583.7230018594349)
+# The float64 backsolve count is a property of the rounding, not of the
+# algorithm (ROADMAP C1).  At iteration 24 (μ = 2.5e-9) the refinement's
+# residual is the difference of opposite terms of the Σ-shifted operator
+# band, as large as the residual itself, so the sum order of the operator's
+# mat-vec decides whether 2 or 3 Richardson sweeps reach the tolerance:
+# the JAX package takes 3 and the port 2 on the same KKT inputs, and the
+# JAX package takes 2 on 6 of 11 one-ulp perturbations of those inputs;
+# whole solves from an initial point perturbed by one ulp take 27-29
+# backsolves in both packages (6 seeds each), with 25 iterations and 25
+# factorizations (tests/test_torch_refine_f64.py).
+FLAGSHIP_FLOAT64_BACKSOLVES = (27, 29)
 OBJ_RTOL = 1e-8
 
 # (b, bw, nb): the main path (nb=600: N=2674 -> b=256, bw=2, 11 block
@@ -143,6 +177,10 @@ TIMED_SOLVES = 7
 # b = 64, bw = 5, nb = 10), right-hand sides of 1, 8 and 130 columns
 FUSED_GEOMETRIES = GEOMETRIES + [(64, 5, 10)]
 FUSED_WIDTHS = (1, 8, 130)
+# the diagonal step alone: lanes of one launch (as the batch's K3) and
+# timed launches per configuration
+DIAG_LANES = 16
+DIAG_REPS = 20
 
 # The MATPOWER path: the JAX package's results on the CPU, (status,
 # iterations, factorization_cnt, backsolve_cnt, objective), from
@@ -380,6 +418,11 @@ def compare_batched(torch, struct, bands):
         "rel": {k: _rel(*v) for k, v in pairs.items()},
         "abs": {k: _abs(*v) for k, v in pairs.items()},
         "rel_vs_single": {k: _rel(*v) for k, v in vs_single.items()},
+        # every lane is active: K3's factor of each lane is K1's, bit for bit
+        "equal_to_single": all(
+            torch.equal(kf.band[i, :nb], f.band[:nb])
+            and torch.equal(kf.invL[i, :nb], f.invL[:nb])
+            and torch.equal(kf.d[i], f.d) for i, f in enumerate(single)),
         "inertia": inertia.tolist(),
         "inertia_equal": bool(
             (inertia == plain.banded_inertia(struct, pf)).all()
@@ -452,6 +495,7 @@ def phase_kernels(torch):
                   "b": b, "bw": bw, "nb": nb, "N": st.N, "dtype": dtype_name,
                   "max_rel_err": res["rel"],
                   "max_rel_err_vs_K1_K2": res["rel_vs_single"], "tol": tol,
+                  "factor_equal_to_K1": res["equal_to_single"],
                   "inertia_per_lane": res["inertia"],
                   "inactive_lane_untouched": untouched})
             if not res["finite"]:
@@ -461,6 +505,9 @@ def phase_kernels(torch):
                                      f"{(b, bw, nb, dtype_name)}")
             if max(res["rel_vs_single"].values()) > tol:
                 raise AssertionError(f"K3/K4 disagree with K1/K2 at "
+                                     f"{(b, bw, nb, dtype_name)}")
+            if (b, bw, nb) == GEOMETRIES[0] and not res["equal_to_single"]:
+                raise AssertionError(f"K3's factor differs from K1's at "
                                      f"{(b, bw, nb, dtype_name)}")
             if not res["inertia_equal"]:
                 raise AssertionError("batched inertia differs")
@@ -544,6 +591,10 @@ def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
         "rel": {k: _rel(*v) for k, v in pairs.items()},
         "abs": {k: _abs(*v) for k, v in pairs.items()},
         "rel_vs_K1_K2": {k: _rel(*v) for k, v in vs_k1_k2.items()},
+        # K5 keeps the scalar diagonal step, K1 runs the tiled one: their
+        # factors on the real columns must be equal, bit for bit
+        "factor_equal_to_K1": {k: bool(torch.equal(*vs_k1_k2[k]))
+                               for k in ("band", "invL", "d")},
         "inertia": [plain.banded_inertia(struct, f) for f in (ff, pf, kf)],
         "finite": bool(torch.isfinite(ff.band[:nb]).all()
                        and all(torch.isfinite(v[0]).all()
@@ -557,8 +608,12 @@ def _check_fused(res, tol, where):
         raise AssertionError(f"non-finite K5/K6 output at {where}")
     if max(res["rel"].values()) > tol:
         raise AssertionError(f"K5/K6 disagree with plain at {where}")
-    if max(res["rel_vs_K1_K2"].values()) > tol:
-        raise AssertionError(f"K5/K6 disagree with K1/K2 at {where}")
+    if not all(res["factor_equal_to_K1"].values()):
+        raise AssertionError(f"K5's factor differs from K1's at {where}: "
+                             f"{res['factor_equal_to_K1']}")
+    if max(v for k, v in res["rel_vs_K1_K2"].items()
+           if k.startswith("solve")) > tol:
+        raise AssertionError(f"K6 disagrees with K2 at {where}")
     if len(set(res["inertia"])) != 1:
         raise AssertionError(f"K5 inertia differs at {where}: {res['inertia']}")
 
@@ -592,6 +647,7 @@ def phase_fused_kernels(torch):
                       "staged": bf.staged(b, band.dtype),
                       "max_rel_err": res["rel"],
                       "max_rel_err_vs_K1_K2": res["rel_vs_K1_K2"], "tol": tol,
+                      "factor_equal_to_K1": res["factor_equal_to_K1"],
                       "inertia (K5, plain, K1)": res["inertia"]})
                 _check_fused(res, tol, where)
                 if zero_row is not None and res["inertia"][0][1] != 1:
@@ -623,6 +679,86 @@ def phase_fused_kernels(torch):
     if launches["K5"] != 1:
         raise AssertionError(f"one K5 call made {launches['K5']} launches")
     return worst
+
+
+# -- 3c. the diagonal step of K1 / K3 alone ------------------------------------
+
+
+def _diag_fmas(b, p=32):
+    """FMAs of one diagonal step at block size ``b``, counted from the loops
+    of ``csrc/banded_diag.cuh`` (panel p): per panel, the corner recursion
+    Σ_j (p−1−j)(2p−1−j), the panel product nr·p², the trailing update of the
+    lower triangle nr(nr+1)/2·p, the L⁻¹ accumulation p²·hi and the R
+    update nr·hi·p, with hi the panel's end and nr = b − hi."""
+    corner = sum((p - 1 - j) * (2 * p - 1 - j) for j in range(p - 1))
+    total = 0
+    for lo in range(0, b, p):
+        hi = lo + p
+        nr = b - hi
+        total += (corner + nr * p * p + nr * (nr + 1) // 2 * p + p * p * hi
+                  + nr * hi * p)
+    return total
+
+
+def phase_diag_step(torch):
+    """One launch of the diagonal-step kernel (the tiled routine K1 and K3
+    run) at the flagship's b = 256 on ``DIAG_LANES`` diagonal blocks of
+    seeded bands (lane 1's holds an exactly zero pivot), for one lane and for
+    all of them, float32 and float64: held bit for bit against the scalar
+    routine that K5 keeps and against the plain version, then both routines
+    timed by CUDA events beside the one-SM bound."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    b, bw, nb = GEOMETRIES[0]
+    out = {}
+    for dtype_name in ("float32", "float64"):
+        _, bands = _lane_bands(torch, b, bw, nb, dtype_name, DIAG_LANES,
+                               zero_lane=1)
+        # block column nb // 2 holds lane 1's zero pivot
+        blocks = bands[:, nb // 2, 0].contiguous()
+        for lanes in (1, DIAG_LANES):
+            A0 = blocks[:lanes].clone()
+            work = {}
+            for tiled in (True, False):
+                A, R = A0.clone(), torch.empty_like(A0)
+                d = A0.new_empty((lanes, b))
+                bk.banded_diag_step_cuda(A, R, d, tiled=tiled)
+                work[tiled] = (A, R, d)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(x, y)
+                        for x, y in zip(work[True], work[False]))
+            LD, invL = plain.ldlt_with_inverse(A0[0].cpu())
+            ref = (LD, invL, torch.diagonal(LD))
+            rel = max(_rel(x[0].cpu(), r) for x, r in zip(work[True], ref))
+            finite = all(bool(torch.isfinite(x).all()) for x in work[True])
+            zeros = [int((work[True][2][i] == 0).sum()) for i in range(lanes)]
+            ms = {}
+            for tiled in (True, False):
+                A, R, d = work[tiled]
+                ms["tiled" if tiled else "scalar"] = _time_events(
+                    torch,
+                    lambda A=A, R=R, d=d, t=tiled: bk.banded_diag_step_cuda(
+                        A, R, d, tiled=t),
+                    lambda A=A: A.copy_(A0), DIAG_REPS)
+            bound = _bounds(nb, b, bw, A0.element_size(), dtype_name,
+                            lanes)["diag"]
+            emit({"phase": "diag_step", "dtype": dtype_name, "b": b,
+                  "lanes": lanes, "ms": ms, "bound": bound,
+                  "bound_share": bound["bound_ms"] / ms["tiled"],
+                  "tiled_equals_scalar": equal, "max_rel_err_vs_plain": rel,
+                  "tol": KERNEL_RTOL[dtype_name], "zero_pivots": zeros})
+            if not equal:
+                raise AssertionError(f"the tiled diagonal step differs from "
+                                     f"the scalar one ({dtype_name}, {lanes})")
+            if not finite or rel > KERNEL_RTOL[dtype_name]:
+                raise AssertionError(f"the diagonal step disagrees with plain "
+                                     f"({dtype_name}, {lanes}): {rel}")
+            if zeros[0] != 0 or (lanes > 1 and zeros[1] != 1):
+                raise AssertionError(f"zero pivots {zeros}: lane 1's was not "
+                                     f"kept")
+            out[dtype_name, lanes] = {"ms": ms, "bound": bound}
+    return out
 
 
 # -- 4. the flagship solve -----------------------------------------------------
@@ -664,12 +800,23 @@ def _solve(torch, port, dtype, keep_band=None, model=None):
 
 
 def _check_solve(stats, dtype, launches):
-    iters, obj = REFERENCE[dtype]
+    status, iters, facts, backs, obj = REFERENCE[dtype]
     c = stats.counters
-    if stats.status.name != "SOLVE_SUCCEEDED":
-        raise AssertionError(f"{dtype}: status {stats.status.name}")
+    if stats.status.name != status:
+        raise AssertionError(f"{dtype}: status {stats.status.name}, JAX {status}")
     if stats.iter != iters:
         raise AssertionError(f"{dtype}: {stats.iter} iterations, JAX {iters}")
+    if c["factorization_cnt"] != facts:
+        raise AssertionError(f"{dtype}: {c['factorization_cnt']} "
+                             f"factorizations, JAX {facts}")
+    if dtype == "float64":
+        lo, hi = FLAGSHIP_FLOAT64_BACKSOLVES
+        if not lo <= c["backsolve_cnt"] <= hi:
+            raise AssertionError(f"float64: {c['backsolve_cnt']} backsolves, "
+                                 f"outside the one-ulp spread {lo}-{hi}")
+    elif abs(c["backsolve_cnt"] - backs) > BACKSOLVE_RTOL * backs:
+        raise AssertionError(f"{dtype}: {c['backsolve_cnt']} backsolves, "
+                             f"JAX {backs}")
     if abs(stats.objective - obj) > OBJ_RTOL * abs(obj):
         raise AssertionError(f"{dtype}: objective {stats.objective!r}, JAX {obj!r}")
     if not np.isfinite(stats.solution).all():
@@ -717,6 +864,17 @@ def _bounds(nb, b, bw, itemsize, dtype, lanes=1):
     bytes2 = (nb * bw * b * b + nb * b * b + nb * b
               + 2 * (nb + bw) * b) * itemsize
     out = {}
+    # the diagonal step alone: one CTA, so one SM, per lane (lanes side by
+    # side on separate SMs); it reads the block and writes the factor, the
+    # inverse and the pivots
+    fmas = _diag_fmas(b)
+    waves = -(-lanes // SMS)
+    t_ops = waves * 2.0 * fmas / (PEAK_FLOPS[dtype] / SMS)
+    t_bytes = lanes * (3 * b * b + b) * itemsize / PEAK_BYTES
+    out["diag"] = {"fmas_per_lane": fmas, "flops": 2.0 * fmas * lanes,
+                   "bytes": lanes * (3 * b * b + b) * itemsize,
+                   "bound_ms": 1e3 * max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     for name, fl, by in (("K1", flops1, bytes1), ("K2", flops2, bytes2),
                          ("K3", lanes * flops1, lanes * bytes1),
                          ("K4", lanes * flops2, lanes * bytes2)):
@@ -748,7 +906,8 @@ def phase_solve(torch, port):
     results["launches"] = launches
     emit({"phase": "solve", "dtype": "float32", "status": stats.status.name,
           "iter": stats.iter, "objective": stats.objective,
-          "reference": REFERENCE["float32"], "counters": stats.counters,
+          "reference": REFERENCE["float32"],
+          "reference_xla_loop": FLAGSHIP_XLA_FLOAT32, "counters": stats.counters,
           "K1_launches": launches[0], "K2_launches": launches[1],
           "wall_s": wall, "iter_per_s": stats.iter / wall})
     first = stats
@@ -1558,6 +1717,7 @@ def main():
     phase_build()
     worst = phase_kernels(torch)
     worst.update(phase_fused_kernels(torch))
+    phase_diag_step(torch)
     solve = phase_solve(torch, port)
     batch = phase_batch(torch, port, solve["iter_per_s_median"])
     phase_matpower_solve(torch, port)

@@ -27,15 +27,20 @@
 //   K2 reads band and invL once per sweep: bound by bytes, but again a chain
 //   of nb dependent block mat-vecs.
 //
-// What the design does about that (first version: simple and right).
+// What the design does about that.
 //   K1: the host loops over block columns; per column it launches
-//     (a) one CTA that factors the diagonal block panel by panel (p = 32):
-//         the scalar pivot recursion only ever runs on a 32×64 corner tile
-//         in shared memory, and the panel, trailing and L⁻¹-accumulation
-//         products are FMA loops over shared-memory operands.  The b×b block
-//         itself (256 KB in f32, 512 KB in f64 at b = 256) does not fit the
-//         227 KB a CTA can use, so it stays in global memory (L2-resident)
-//         and only the current panel's operands stream through shared memory;
+//     (a) one CTA that factors the diagonal block panel by panel (p = 32)
+//         with diag_ldlt_block_tiled (banded_diag.cuh, whose note has the
+//         details): the b×b block itself (256 KB in f32, 512 KB in f64 at
+//         b = 256) does not fit the 227 KB a CTA can use, so it stays in
+//         global memory (L2-resident) and each panel's operands are staged
+//         in shared memory by cp.async while warp 0 runs the 32×64 corner
+//         recursion; the panel, L⁻¹-accumulation, trailing and R products
+//         run on 4×4 register micro-tiles, one 16-byte operand load per 16
+//         FMAs, the trailing one over the lower triangle's tiles only.  It
+//         is bound by one SM's FMA rate and the chain of b/32 panels, and
+//         its factor is bit for bit the scalar routine's (diag_ldlt_block,
+//         which K5 keeps);
 //     (b) a tiled SIMT GEMM  X = P·L_jj⁻ᵀ  over the panel rows into scratch,
 //     (c) Lcol = X·D⁻¹ written over P, and
 //     (d) a tiled SIMT GEMM over the (l, m, tile) grid for the trailing
@@ -85,21 +90,42 @@ __device__ __forceinline__ bool lane_on(const int* __restrict__ active,
 }
 
 // (a) LDLᵀ + L⁻¹ of one lower-stored b×b block A (ld = b), in place, by
-// diag_ldlt_block (banded_diag.cuh): A <- strict-lower L + diag(d) (upper
-// zero), R <- L⁻¹, dout <- d.  One CTA per lane (blockIdx.x); lane
+// diag_ldlt_block_tiled (banded_diag.cuh): A <- strict-lower L + diag(d)
+// (upper zero), R <- L⁻¹, dout <- d.  One CTA per lane (blockIdx.x); lane
 // strides sA, sR, sd.  One CTA per SM at most (its shared memory sees to
 // that): the bound lets ptxas use the registers a single resident CTA
-// leaves free.
-template <typename T>
+// leaves free.  With TILED = false it runs the scalar routine
+// diag_ldlt_block instead, which the tiled one equals bit for bit (only
+// the diag_step entry launches that form, to hold the two against each
+// other).
+template <typename T, bool TILED>
 __global__ void __launch_bounds__(DIAG_THREADS, 1)
 diag_ldlt_kernel(T* __restrict__ A, T* __restrict__ R, T* __restrict__ dout,
                  int b, size_t sA, size_t sR, size_t sd,
                  const int* __restrict__ active) {
   const int lane_idx = blockIdx.x;
   if (!lane_on(active, lane_idx)) return;
-  extern __shared__ unsigned char smem_raw[];
-  diag_ldlt_block(A + lane_idx * sA, R + lane_idx * sR, dout + lane_idx * sd,
-                  b, reinterpret_cast<T*>(smem_raw));
+  extern __shared__ __align__(16) unsigned char diag_smem[];
+  T* sm = reinterpret_cast<T*>(diag_smem);
+  if constexpr (TILED) {
+    diag_ldlt_block_tiled(A + lane_idx * sA, R + lane_idx * sR,
+                          dout + lane_idx * sd, b, sm);
+  } else {
+    diag_ldlt_block(A + lane_idx * sA, R + lane_idx * sR,
+                    dout + lane_idx * sd, b, sm);
+  }
+}
+
+// Shared memory of diag_ldlt_kernel<T, TILED>, in bytes, after raising the
+// kernel's dynamic shared-memory limit to it; 0 if that was refused.
+template <typename T, bool TILED>
+size_t diag_kernel_smem(int b, cudaError_t* err) {
+  const size_t smem = TILED ? diag_tiled_smem_bytes<T>(b)
+                            : diag_smem_bytes<T>(b);
+  *err = cudaFuncSetAttribute(diag_ldlt_kernel<T, TILED>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+  return *err == cudaSuccess ? smem : 0;
 }
 
 // Tiled SIMT GEMM  C[M×N] (ldc)  =  or  -=  A[M×K] (lda) · B[N×K]ᵀ (ldb).
@@ -223,10 +249,8 @@ trailing_kernel(T* __restrict__ band, const T* __restrict__ X, int j, int b,
 template <typename T>
 int factorize(T* band, T* invL, T* d, T* xbuf, const int* active, int lanes,
               FactorStrides s, int nb, int b, int bw, cudaStream_t stream) {
-  const size_t smem = diag_smem_bytes<T>(b);
-  cudaError_t err = cudaFuncSetAttribute(
-      diag_ldlt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err;
+  const size_t smem = diag_kernel_smem<T, true>(b, &err);
   if (err != cudaSuccess) return (int)err;
   const size_t bb = (size_t)b * b;
   const int rows = bw * b;
@@ -236,7 +260,7 @@ int factorize(T* band, T* invL, T* d, T* xbuf, const int* active, int lanes,
   const dim3 scale_grid((unsigned)(((size_t)rows * b + 255) / 256), lanes);
   for (int j = 0; j < nb; ++j) {
     T* col = band + (size_t)j * (bw + 1) * bb;
-    diag_ldlt_kernel<T><<<lanes, DIAG_THREADS, smem, stream>>>(
+    diag_ldlt_kernel<T, true><<<lanes, DIAG_THREADS, smem, stream>>>(
         col, invL + (size_t)j * bb, d + (size_t)j * b, b, s.band, s.invL,
         s.d, active);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -359,6 +383,28 @@ int solve(const T* band, const T* invL, const T* d, T* rhs, const int* active,
   return (int)cudaGetLastError();
 }
 
+// The diagonal step alone on `lanes` contiguous blocks A (lanes, b, b), R
+// (lanes, b, b), dout (lanes, b): the tiled routine K1 and K3 run, or
+// (tiled = 0) the scalar one.
+template <typename T>
+int diag_step(T* A, T* R, T* dout, int lanes, int b, int tiled,
+              cudaStream_t stream) {
+  cudaError_t err;
+  const size_t bb = (size_t)b * b;
+  if (tiled) {
+    const size_t smem = diag_kernel_smem<T, true>(b, &err);
+    if (err != cudaSuccess) return (int)err;
+    diag_ldlt_kernel<T, true><<<lanes, DIAG_THREADS, smem, stream>>>(
+        A, R, dout, b, bb, bb, b, nullptr);
+  } else {
+    const size_t smem = diag_kernel_smem<T, false>(b, &err);
+    if (err != cudaSuccess) return (int)err;
+    diag_ldlt_kernel<T, false><<<lanes, DIAG_THREADS, smem, stream>>>(
+        A, R, dout, b, bb, bb, b, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Lane strides of K3's arrays: band (B, nbp, bw+1, b, b), invL (B, nbp, b,
 // b), d (B, nb·b), xbuf (B, bw·b, b).
 FactorStrides batched_strides(int nb, int b, int bw) {
@@ -436,6 +482,19 @@ int banded_solve_batched_f64(void* band, void* invL, void* d, void* rhs,
   return solve<double>((const double*)band, (const double*)invL,
                        (const double*)d, (double*)rhs, (const int*)active,
                        lanes, nb, b, bw, k, (cudaStream_t)stream);
+}
+
+// the diagonal step of K1 / K3 alone
+int banded_diag_step_f32(void* A, void* R, void* d, int lanes, int b,
+                         int tiled, void* stream) {
+  return diag_step<float>((float*)A, (float*)R, (float*)d, lanes, b, tiled,
+                          (cudaStream_t)stream);
+}
+
+int banded_diag_step_f64(void* A, void* R, void* d, int lanes, int b,
+                         int tiled, void* stream) {
+  return diag_step<double>((double*)A, (double*)R, (double*)d, lanes, b,
+                           tiled, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -7,7 +7,10 @@
 * K3 :func:`banded_factorize_batched_cuda` replaces
   ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_factorize_call_batched``;
 * K4 :func:`banded_solve_batched_cuda` replaces
-  ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_call_batched``.
+  ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_call_batched``;
+* :func:`banded_diag_step_cuda` launches the diagonal step of K1 and K3
+  alone (``pallas_banded.py:_ldlt_with_inverse``), for timing it and for
+  holding it bit for bit against the scalar routine K5 keeps.
 
 All four are CUDA C++ for ``sm_90a`` in ``csrc/banded_ldlt.cu`` (K3 and K4
 run K1's and K2's kernel bodies with a lane index), compiled by ``nvcc``
@@ -114,6 +117,10 @@ def load():
         for name in ("banded_solve_batched_f32", "banded_solve_batched_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            fn.restype = ci
+        for name in ("banded_diag_step_f32", "banded_diag_step_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             fn.restype = ci
         _lib = lib
     return _lib
@@ -277,8 +284,40 @@ def banded_solve_batched_cuda(band, invL, d, rhs, active):
 
 banded_solve_batched_cuda.launches = 0
 
+def banded_diag_step_cuda(A, R, dout, tiled: bool = True):
+    """The diagonal step of K1 and K3 alone: LDLᵀ and L⁻¹ of each
+    lower-stored block ``A (lanes, b, b)``, in place, one CTA per block:
+    ``A[i]`` <- strict-lower L + diag(d) (upper zero), ``R[i]`` <- L⁻¹,
+    ``dout[i]`` <- d.  ``tiled=False`` runs the scalar routine that K5 keeps
+    (``diag_ldlt_block``), which the tiled one equals bit for bit."""
+    if not A.is_cuda:
+        raise ValueError("banded_diag_step_cuda needs CUDA tensors")
+    if A.dtype not in _SUFFIX:
+        raise TypeError(f"unsupported dtype {A.dtype}")
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError("A must be (lanes, b, b)")
+    lanes, b, _ = A.shape
+    if b not in SUPPORTED_BLOCKS:
+        raise ValueError(f"block size {b} not in {SUPPORTED_BLOCKS}")
+    _check("A", A, (lanes, b, b), A.dtype, A.device)
+    _check("R", R, (lanes, b, b), A.dtype, A.device)
+    _check("dout", dout, (lanes, b), A.dtype, A.device)
+    fn = getattr(load(), "banded_diag_step_" + _SUFFIX[A.dtype])
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(A.data_ptr(), R.data_ptr(), dout.data_ptr(), lanes, b,
+                 int(tiled), stream)
+    banded_diag_step_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"banded_diag_step_cuda: CUDA error {err}")
+    return A, R, dout
+
+
+banded_diag_step_cuda.launches = 0
+
 KERNELS = (banded_factorize_cuda, banded_solve_cuda,
-           banded_factorize_batched_cuda, banded_solve_batched_cuda)
+           banded_factorize_batched_cuda, banded_solve_batched_cuda,
+           banded_diag_step_cuda)
 
 
 def reset_counts():

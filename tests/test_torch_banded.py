@@ -198,3 +198,25 @@ def test_cpu_tensors_take_the_plain_path():
             tk.banded_solve_cuda.launches) == before
     with pytest.raises(ValueError):
         tk.banded_factorize_cuda(tband, ref.invL, ref.d, ts.nb, 32, 1)
+
+
+@pytest.mark.parametrize("b,dtype", [(32, "float64"), (64, "float64"),
+                                     (64, "float32")])
+def test_block_ldlt_matches_pallas_ldlt_with_inverse(b, dtype):
+    """The plain diagonal step (``ldlt_with_inverse``: the panel-blocked
+    LDLᵀ and L⁻¹ of one lower-stored block, the reference of K1/K3's tiled
+    step and K5's scalar one) against the TPU kernel's
+    ``pallas_banded._ldlt_with_inverse``, on a dominant indefinite block and
+    on one with an exactly zero pivot."""
+    from madnlp_tpu.ops.pallas_banded import _ldlt_with_inverse
+
+    for seed, zero in ((b, None), (b + 1, b // 2)):
+        rows, cols, vals = _system(seed, b, b, 1, signs=True, zero_row=zero)
+        A = np.zeros((b, b))
+        A[rows, cols] = vals
+        LD, invL = tb.ldlt_with_inverse(torch.as_tensor(A).to(TDT[dtype]))
+        jLD, jinvL = _ldlt_with_inverse(jnp.asarray(A, dtype=dtype), b)
+        assert _rel(LD.numpy(), np.tril(np.asarray(jLD))) < RTOL[dtype]
+        assert _rel(invL.numpy(), np.asarray(jinvL)) < RTOL[dtype]
+        assert int((torch.diagonal(LD) == 0).sum()) == (0 if zero is None
+                                                       else 1)

@@ -5,7 +5,9 @@ mask, also held against K1/K2 on each lane) of csrc/banded_ldlt.cu, K5/K6
 csrc/banded_fused.cu, and K7, the whole-matrix dense LDLᵀ of
 csrc/dense_ldlt.cu; small solves of the sparse, batched and dense paths
 on the card against the CPU; and the case118 bench-configuration solve
-on the card against the JAX package's numbers.
+on the card against the JAX package's numbers.  K1 and K3 run the tiled
+diagonal step, K5 the scalar one it was rewritten from: their factors, and
+the two steps alone, are held equal bit for bit.
 
 Run on a machine with an NVIDIA GPU and nvcc (``--noconftest`` skips
 tests/conftest.py, which imports JAX):
@@ -311,6 +313,55 @@ def test_fused_kernels_match_plain_and_k1_k2(b, bw, nb, zero, dtype):
         assert x.shape == rhs.shape
         assert _rel(x, bf.banded_fused_solve_plain(st, ff, rhs)) < RTOL[dtype]
         assert _rel(x, _k2_solve(st, kf, rhs)) < RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb", [(256, 2, 11), (64, 5, 10)])
+def test_k1_and_k3_factors_equal_k5_bit_for_bit(b, bw, nb, dtype):
+    """K1 and K3 run the tiled diagonal step, K5 the scalar one it was
+    rewritten from: the factors on the real columns must be equal, on a
+    dominant band and on one with an exactly zero pivot (lane 1)."""
+    _need_cuda()
+    st, bands = _lanes(nb, b, bw, dtype, zero_lane=1, lanes=2)
+    B = bands.shape[0]
+    kb = bk.factorize_batched(st, bands.clone(),
+                              bands.new_zeros((B, st.nbp, b, b)),
+                              bands.new_ones((B, nb * b)), np.ones(B, bool))
+    for i in range(B):
+        ff = bf.banded_fused_factorize(st, bands[i].clone())
+        kf = bk.factorize(st, bands[i].clone())
+        torch.cuda.synchronize()
+        for f in (kf, plain.BandedFactor(kb.band[i], kb.invL[i], kb.d[i])):
+            assert torch.equal(f.band[:nb], ff.band[:nb])
+            assert torch.equal(f.invL[:nb], ff.invL[:nb])
+            assert torch.equal(f.d, ff.d)
+            assert plain.banded_inertia(st, f) == plain.banded_inertia(st, ff)
+        assert plain.banded_inertia(st, ff)[1] == (1 if i == 1 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [32, 64, 128, 256])
+def test_tiled_diagonal_step_equals_the_scalar_one(b, dtype):
+    """The diagonal step alone, three blocks per launch (the second with an
+    exactly zero pivot): the tiled routine equals the scalar one bit for
+    bit and the plain version within the kernel tolerance."""
+    _need_cuda()
+    st, bands = _lanes(4, b, 1, dtype, zero_lane=1)
+    A0 = bands[:, 1, 0].contiguous()      # block column 1 holds the zero
+    out = {}
+    for tiled in (True, False):
+        A, R = A0.clone(), torch.empty_like(A0)
+        d = A0.new_empty(A0.shape[:2])
+        bk.banded_diag_step_cuda(A, R, d, tiled=tiled)
+        out[tiled] = (A, R, d)
+    torch.cuda.synchronize()
+    for x, y in zip(out[True], out[False]):
+        assert torch.equal(x, y)
+    assert int((out[True][2][1] == 0).sum()) == 1
+    for i in range(A0.shape[0]):
+        LD, invL = plain.ldlt_with_inverse(A0[i].cpu())
+        for x, r in zip(out[True], (LD, invL, torch.diagonal(LD))):
+            assert _rel(x[i].cpu(), r) < RTOL[dtype]
 
 
 def _k2_solve(st, f, rhs):
