@@ -31,6 +31,14 @@ script exits non-zero without a result):
    tiled one, so their factors (band, invL, d on the real columns) must be
    equal bit for bit; then the CUDA launches of one K5 call counted by
    torch.profiler (one) beside one K1 call's (4·nb).
+   ``solve_witness``: K2 and K4 (one thread-block cluster per system)
+   against the one-CTA solve they replaced (``banded_solve_reference_cuda``,
+   their witness), bit for bit, at ``SOLVE_GEOMETRIES`` in float32 and
+   float64, k = 1 and 8 right-hand sides: K4 on three lanes (lane 1 with an
+   exactly zero pivot), K2 on each lane, and K4 with lane 0 inactive once
+   per dtype (lane 0's right-hand side must come back bit for bit); each
+   line names the launch plan (cluster size, stages) and the clusters the
+   card keeps resident.
    ``diag_step``: the diagonal step of K1 / K3 alone (one CTA per block) at
    b = 256 on 1 and ``DIAG_LANES`` = 16 seeded diagonal blocks (one with an
    exactly zero pivot), float32 and float64: the tiled routine against the
@@ -44,9 +52,10 @@ script exits non-zero without a result):
    iterations and factorizations exactly, the objective within 1e-8,
    float32 backsolves within 6%, float64 backsolves within the one-ulp
    spread ``FLAGSHIP_FLOAT64_BACKSOLVES``); the kernels' launch counts
-   over the float32 solve; the float32 solve repeated, bit for bit; K1/K2
-   against the plain versions on the last band of that solve and timed
-   there beside their plain versions and their bounds; ``TIMED_SOLVES``
+   over the float32 solve (the witness never); the float32 solve
+   repeated, bit for bit; K1/K2 against the plain versions on the last
+   band of that solve and timed there beside their plain versions, K2's
+   witness (in turns with K2) and their bounds; ``TIMED_SOLVES``
    more float32 solves, each bit-identical to the first, whose median wall
    gives the iter/s metric (with its spread); one more float32 solve under
    torch.profiler for the device time by kernel.
@@ -66,7 +75,8 @@ script exits non-zero without a result):
    ``TIMED_BATCHES`` more bulk runs for the lane-iterations and instances
    per second; K3 / K4 against their plain versions on the batch's last
    band of every lane (float64), then timed against 16 sequential K1 / K2
-   launches on the same bands; one bulk run under torch.profiler.
+   launches on the same bands, K4 in turns with its witness; one bulk run
+   under torch.profiler.
 
    ``matpower_solve``: the MATPOWER front end and the JAX package's bench
    primary, ``build_acopf(tile_case(parse_case("tests/data/case118.m"), 4,
@@ -74,13 +84,15 @@ script exits non-zero without a result):
    card in float64 and float32, each against the JAX package's CPU results
    (``MATPOWER_REFERENCE``) and the published optimum 4 × 129660.70; K1 /
    K2 launches over the float32 solve (K5 / K6 never); a repeat bit for
-   bit; ``TIMED_SOLVES`` warmed float32 solves for the median iter/s; one
-   under torch.profiler.
+   bit, whose last band K2 and its witness are timed on in turns;
+   ``TIMED_SOLVES`` warmed float32 solves for the median iter/s; one under
+   torch.profiler.
    ``case118_band``: a float32 case118 solve (held to the JAX package) whose
    last KKT band goes through K5 / K6 (their op path: counts set to 0 just
    before, one launch each read just after), their plain versions and K1 /
    K2: agreement in float64 within ``REAL_BAND_RTOL``, inertia equal, and
-   each timed by CUDA events beside its bound.
+   each timed by CUDA events beside its bound (K2 in turns with its
+   witness).
 6. ``dense_kernels`` — the whole-matrix dense LDLᵀ kernel K7 against its
    plain PyTorch version on the card, float32 and float64, block 128, at
    N = 128, 300, 1024 and 2674 (the dense nb=600 system), on an indefinite
@@ -177,6 +189,10 @@ TIMED_SOLVES = 7
 # b = 64, bw = 5, nb = 10), right-hand sides of 1, 8 and 130 columns
 FUSED_GEOMETRIES = GEOMETRIES + [(64, 5, 10)]
 FUSED_WIDTHS = (1, 8, 130)
+# K2 / K4 against their witness: the kernel phase's geometries, case118's
+# and the case118×4 ring's (N = 2320: b = 256, bw = 4, nb = 10)
+SOLVE_GEOMETRIES = GEOMETRIES + [(64, 5, 10), (256, 4, 10)]
+SOLVE_WIDTHS = (1, 8)
 # the diagonal step alone: lanes of one launch (as the batch's K3) and
 # timed launches per configuration
 DIAG_LANES = 16
@@ -581,8 +597,8 @@ def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
             dtype=band.dtype, device=band.device)
         fx = bf.banded_fused_solve(struct, ff, rhs)
         pairs[f"solve_k{k}"] = (fx, bf.banded_fused_solve_plain(struct, ff, rhs))
-        # K2 holds 2·b·k values of the right-hand side in one CTA's shared
-        # memory: eight columns at a time
+        # K2 holds (bw+2)·b·k values of the right-hand side in each CTA's
+        # shared memory: eight columns at a time
         kx = (bk.solve(struct, kf, rhs) if k == 1 else torch.cat(
             [bk.solve(struct, kf, rhs[:, i:i + 8]) for i in range(0, k, 8)], 1))
         vs_k1_k2[f"solve_k{k}"] = (fx, kx)
@@ -679,6 +695,144 @@ def phase_fused_kernels(torch):
     if launches["K5"] != 1:
         raise AssertionError(f"one K5 call made {launches['K5']} launches")
     return worst
+
+
+# -- 3b'. K2 / K4 against their witness ---------------------------------------
+
+def _same_bits(torch, a, b):
+    """Equal bit for bit (NaN and signed zeros included)."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def _plan_line(torch, band, rhs):
+    """The cluster solve's launch plan for these operands, and the clusters
+    of each size the card keeps resident."""
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    plan = bk.plan_for(band, rhs)
+    return {"clusters": plan.clusters, "rows_per_stage": plan.rows,
+            "stages": plan.stages, "smem_bytes": plan.smem,
+            "max_active_clusters": bk.max_clusters(band.dtype, band.device)}
+
+
+def phase_solve_witness(torch):
+    """K2 and K4 against the one-CTA reference solve, bit for bit, at
+    ``SOLVE_GEOMETRIES`` × both dtypes × ``SOLVE_WIDTHS``, three lanes of
+    which lane 1 carries an exactly zero pivot; K4 with lane 0 inactive
+    once per dtype.  Returns the witness's worst absolute error against
+    the plain solve at the main path's geometry in float32."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    worst = {}
+    for (b, bw, nb) in SOLVE_GEOMETRIES:
+        for dtype_name in ("float32", "float64"):
+            st, bands = _lane_bands(torch, b, bw, nb, dtype_name, BATCH_LANES,
+                                    zero_lane=1)
+            B = bands.shape[0]
+            every = np.ones(B, dtype=bool)
+            f = bk.factorize_batched(
+                st, bands.clone(), bands.new_zeros((B, st.nbp, b, b)),
+                bands.new_ones((B, nb * b)), every)
+            rng = np.random.default_rng(b * bw + nb)
+            equal, plans = {}, {}
+            for k in SOLVE_WIDTHS:
+                rhs = plain.pad_rhs_batched(st, torch.as_tensor(
+                    rng.standard_normal((B, st.N, k)), dtype=bands.dtype,
+                    device=bands.device))
+                new, ref = rhs.clone(), rhs.clone()
+                bk.banded_solve_batched_cuda(f.band, f.invL, f.d, new, every)
+                bk.banded_solve_reference_cuda(f.band, f.invL, f.d, ref, every)
+                ok = _same_bits(torch, new, ref)
+                for i in range(B):
+                    x, y = rhs[i].clone(), rhs[i].clone()
+                    bk.banded_solve_cuda(f.band[i], f.invL[i], f.d[i], x)
+                    bk.banded_solve_reference_cuda(f.band[i], f.invL[i],
+                                                   f.d[i], y)
+                    ok = ok and _same_bits(torch, x, y) \
+                        and _same_bits(torch, x, new[i])
+                equal[f"k{k}"] = ok
+                plans[f"K2_k{k}"] = _plan_line(torch, f.band[0], rhs[0])
+                plans[f"K4_k{k}"] = _plan_line(torch, f.band, rhs)
+                if (b, bw, nb) == GEOMETRIES[0] and dtype_name == "float32" \
+                        and k == 1:
+                    p = plain.solve_padded_batched(f.band, f.invL, f.d,
+                                                   rhs.clone(), every)
+                    y = rhs[0].clone()
+                    bk.banded_solve_reference_cuda(f.band[0], f.invL[0],
+                                                   f.d[0], y)
+                    worst["K2_witness"] = _abs(y, p[0])
+                    worst["K4_witness"] = _abs(ref, p)
+            untouched = None
+            if (b, bw, nb) == GEOMETRIES[0]:
+                active = every.copy()
+                active[0] = False
+                new, ref = rhs.clone(), rhs.clone()
+                bk.banded_solve_batched_cuda(f.band, f.invL, f.d, new, active)
+                bk.banded_solve_reference_cuda(f.band, f.invL, f.d, ref,
+                                               active)
+                untouched = (_same_bits(torch, new, ref)
+                             and _same_bits(torch, new[0], rhs[0]))
+            torch.cuda.synchronize()
+            emit({"phase": "solve_witness", "b": b, "bw": bw, "nb": nb,
+                  "N": st.N, "dtype": dtype_name, "lanes": B, "zero_lane": 1,
+                  "equal_to_witness": equal,
+                  "inactive_lane_equal_and_untouched": untouched,
+                  "plans": plans})
+            if not all(equal.values()):
+                raise AssertionError(f"K2/K4 differ from their witness at "
+                                     f"{(b, bw, nb, dtype_name)}: {equal}")
+            if untouched is False:
+                raise AssertionError(f"K4 with lane 0 inactive differs at "
+                                     f"{(b, bw, nb, dtype_name)}")
+    return worst
+
+
+QUEUED = 10            # launches per round of _time_turns
+SPIN_CYCLES = 20_000_000   # the spin kernel that queues them (about 10 ms)
+
+
+def _time_turns(torch, fns, setup, rounds):
+    """Milliseconds per launch of each of ``fns`` ({name: fn}) on the card,
+    timed in turns by CUDA events: each round queues ``QUEUED`` launches,
+    ``setup`` before each, behind a spin kernel, so that they run back to
+    back and the host's launch overhead (the wrapper's checks and the
+    launch, tens of microseconds) stays off the card's clock; the
+    functions take turns, in order and then reversed, for ``rounds`` rounds.
+    The median round, less the setup's own time measured the same way."""
+    def queued(fn):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(QUEUED):
+            setup()
+            if fn is not None:
+                fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / QUEUED
+
+    times = {name: [] for name in fns}
+    base = []
+    for r in range(rounds):
+        base.append(queued(None))
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(queued(fns[name]))
+    setup_ms = statistics.median(base)
+    return {name: statistics.median(v) - setup_ms for name, v in times.items()}
+
+
+def _witness_launches(torch, fn):
+    """Launches of the witness on its own op path: counts set to 0 just
+    before one call, read just after."""
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    bk.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    return bk.banded_solve_reference_cuda.launches
 
 
 # -- 3c. the diagonal step of K1 / K3 alone ------------------------------------
@@ -796,7 +950,15 @@ def _solve(torch, port, dtype, keep_band=None, model=None):
         bk.factorize = factorize
     wall = time.perf_counter() - t
     launches = (bk.banded_factorize_cuda.launches, bk.banded_solve_cuda.launches)
+    _no_witness(bk.counts())
     return stats, wall, launches
+
+
+def _no_witness(counts):
+    """No solve path reaches the witness of K2 / K4."""
+    if counts["banded_solve_reference_cuda"]:
+        raise AssertionError(f"the reference solve ran on a solve path: "
+                             f"{counts}")
 
 
 def _check_solve(stats, dtype, launches):
@@ -973,17 +1135,25 @@ def phase_solve(torch, port):
         "K1_plain": _time_events(
             torch, lambda: plain.factorize_columns(work, pinv, pd, st.nb, st.b, st.bw),
             lambda: work.copy_(band32), 5),
-        "K2": _time_events(
-            torch, lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rwork),
-            lambda: rwork.copy_(rhs), 100),
+        **_time_turns(torch, {
+            "K2": lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rwork),
+            "K2_witness": lambda: bk.banded_solve_reference_cuda(
+                f.band, f.invL, f.d, rwork)},
+            lambda: rwork.copy_(rhs), 10),
         "K2_plain": _time_events(
             torch, lambda: plain.solve_padded(f.band, f.invL, f.d, rwork),
             lambda: rwork.copy_(rhs), 20),
     }
+    witness = _witness_launches(torch, lambda: bk.banded_solve_reference_cuda(
+        f.band, f.invL, f.d, rwork))
     bounds = _bounds(st.nb, st.b, st.bw, band32.element_size(), "float32")
     emit({"phase": "timing", "dtype": "float32", "b": st.b, "bw": st.bw,
-          "nb": st.nb, "ms": times, "bounds": bounds})
-    results.update(times=times, bounds=bounds)
+          "nb": st.nb, "ms": times, "bounds": bounds,
+          "K2_share_of_bound": bounds["K2"]["bound_ms"] / times["K2"],
+          "K2_witness_over_K2": times["K2_witness"] / times["K2"],
+          "K2_plan": _plan_line(torch, f.band, rwork),
+          "witness_op_launches": witness})
+    results.update(times=times, bounds=bounds, witness_launches=witness)
     emit(dict(phase="profile", dtype="float32", **_profile(torch, port)))
     return results
 
@@ -1051,6 +1221,7 @@ def _solve_batch(torch, port, keep=None, **kwargs):
     finally:
         bk.factorize_batched = factorize_batched
     wall = time.perf_counter() - t
+    _no_witness(bk.counts())
     return port.batch_summary(solver.prob, st), wall, bk.counts()
 
 
@@ -1065,9 +1236,11 @@ def _single_lanes(torch, port):
     """The port's single float32 solve of each scenario on the card (K1 and
     K2): the exact reference for the batch's per-lane counters."""
     from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
 
     model = opf.build_sparse(nb=600, seed=0, parametric=True)
     out = []
+    bk.reset_counts()
     for scale in BATCH_SCALES:
         s = port.madnlp(model, params=scale, device="cuda",
                         linear_solver=port.LinearSolver.BANDED,
@@ -1077,6 +1250,7 @@ def _single_lanes(torch, port):
         out.append((int(s.status), s.iter, s.counters["factorization_cnt"],
                     s.counters["backsolve_cnt"], s.objective))
     torch.cuda.synchronize()
+    _no_witness(bk.counts())
     return [np.array(v) for v in zip(*out)]
 
 
@@ -1205,6 +1379,9 @@ def phase_batch(torch, port, single_iter_per_s):
         (B, st.nbp * b, 1)), dtype=bands.dtype, device=bands.device)
     rwork = torch.empty_like(rhs)
 
+    # the lane mask on the card, as the solver's own calls upload it
+    mask = torch.ones(B, dtype=torch.int32, device=bands.device)
+
     def k1_each():
         for i in range(B):
             bk.banded_factorize_cuda(work[i], invL[i], d[i], nb, b, bw)
@@ -1223,21 +1400,29 @@ def phase_batch(torch, port, single_iter_per_s):
             torch, lambda: plain.factorize_columns_batched(
                 work, invL, d, every, nb, b, bw),
             lambda: work.copy_(bands), 1),
-        "K4": _time_events(
-            torch, lambda: bk.banded_solve_batched_cuda(
-                f.band, f.invL, f.d, rwork, every),
-            lambda: rwork.copy_(rhs), 50),
+        **_time_turns(torch, {
+            "K4": lambda: bk.banded_solve_batched_cuda(
+                f.band, f.invL, f.d, rwork, mask),
+            "K4_witness": lambda: bk.banded_solve_reference_cuda(
+                f.band, f.invL, f.d, rwork, mask)},
+            lambda: rwork.copy_(rhs), 8),
         "K2_x16": _time_events(torch, k2_each, lambda: rwork.copy_(rhs), 20),
         "K4_plain": _time_events(
             torch, lambda: plain.solve_padded_batched(
                 f.band, f.invL, f.d, rwork, every),
             lambda: rwork.copy_(rhs), 3),
     }
+    witness = _witness_launches(torch, lambda: bk.banded_solve_reference_cuda(
+        f.band, f.invL, f.d, rwork, every))
     bounds = _bounds(nb, b, bw, bands.element_size(), "float32", lanes=B)
     emit({"phase": "batch_timing", "dtype": "float32", "lanes": B, "b": b,
           "bw": bw, "nb": nb, "ms": times,
           "K3_over_K1": times["K3"] / (times["K1_x16"] / B),
           "K4_over_K2": times["K4"] / (times["K2_x16"] / B),
+          "K4_share_of_bound": bounds["K4"]["bound_ms"] / times["K4"],
+          "K4_witness_over_K4": times["K4_witness"] / times["K4"],
+          "K4_plan": _plan_line(torch, f.band, rwork),
+          "witness_op_launches": witness,
           "bounds": {k: bounds[k] for k in ("K3", "K4")}})
 
     def profiled():
@@ -1247,7 +1432,7 @@ def phase_batch(torch, port, single_iter_per_s):
               **_profile(torch, port, profiled)))
     return {"launches": (counts["banded_factorize_batched_cuda"],
                          counts["banded_solve_batched_cuda"]),
-            "times": times, "bounds": bounds}
+            "times": times, "bounds": bounds, "witness_launches": witness}
 
 
 # -- 5b. the MATPOWER front end: the case118×4 ring and case118 ----------------
@@ -1310,7 +1495,9 @@ def phase_matpower_solve(torch, port):
               "K5_K6_launches": fused, "wall_s": wall,
               "iter_per_s": stats.iter / wall})
         out[dtype] = (stats, launches)
-        again, wall2, _ = _solve(torch, port, dtype, model=model)
+        kept = {}
+        again, wall2, _ = _solve(torch, port, dtype, model=model,
+                                 keep_band=kept)
         same = (again.objective == stats.objective
                 and np.array_equal(again.solution, stats.solution)
                 and np.array_equal(again.multipliers, stats.multipliers)
@@ -1320,6 +1507,7 @@ def phase_matpower_solve(torch, port):
         if not same:
             raise AssertionError(f"the repeated {name} {dtype} solve differs")
     first = out["float32"][0]
+    ring_times = _time_ring_band(torch, kept)
 
     walls = []
     for _ in range(TIMED_SOLVES):
@@ -1341,7 +1529,34 @@ def phase_matpower_solve(torch, port):
         return stats.iter, wall
     emit(dict(phase="matpower_profile", case=name, dtype="float32",
               **_profile(torch, port, run)))
-    return {"launches": out["float32"][1], "iter_per_s_median": first.iter / med}
+    return {"launches": out["float32"][1], "iter_per_s_median": first.iter / med,
+            "times": ring_times}
+
+
+def _time_ring_band(torch, kept):
+    """K2 and its witness, in turns, on the last band the ring's float32
+    solve factorized (one right-hand side), beside K2's bound."""
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    st, band32 = kept["struct"], kept["band"]
+    f = bk.factorize(st, band32.clone())
+    rhs = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (st.nbp * st.b, 1)), dtype=band32.dtype, device=band32.device)
+    rw = torch.empty_like(rhs)
+    times = _time_turns(torch, {
+        "K2": lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rw),
+        "K2_witness": lambda: bk.banded_solve_reference_cuda(
+            f.band, f.invL, f.d, rw)},
+        lambda: rw.copy_(rhs), 10)
+    bound = _bounds(st.nb, st.b, st.bw, band32.element_size(),
+                    "float32")["K2"]
+    emit({"phase": "matpower_timing", "case": "case118x4_ring",
+          "dtype": "float32", "b": st.b, "bw": st.bw, "nb": st.nb,
+          "ms": times, "bound": bound,
+          "K2_share_of_bound": bound["bound_ms"] / times["K2"],
+          "K2_witness_over_K2": times["K2_witness"] / times["K2"],
+          "K2_plan": _plan_line(torch, f.band, rw)})
+    return times
 
 
 def phase_case118_band(torch, port):
@@ -1410,17 +1625,21 @@ def phase_case118_band(torch, port):
         "K6_plain": _time_events(
             torch, lambda: bf.banded_fused_solve_plain(st, f, rhs),
             lambda: None, 20),
-        "K2": _time_events(
-            torch, lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rw),
-            lambda: rw.copy_(r1), 100),
+        **_time_turns(torch, {
+            "K2": lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rw),
+            "K2_witness": lambda: bk.banded_solve_reference_cuda(
+                f.band, f.invL, f.d, rw)},
+            lambda: rw.copy_(r1), 10),
     }
     # K5 computes K1's function and K6 K2's (one right-hand side)
     bounds = _bounds(nb, b, bw, band32.element_size(), "float32")
-    bounds = {"K5": bounds["K1"], "K6": bounds["K2"]}
+    bounds = {"K5": bounds["K1"], "K6": bounds["K2"], "K2": bounds["K2"]}
     emit({"phase": "case118_timing", "dtype": "float32", "b": b, "bw": bw,
           "nb": nb, "ms": times, "bounds": bounds,
           "K5_over_K1": times["K5"] / times["K1"],
-          "K6_over_K2": times["K6"] / times["K2"]})
+          "K6_over_K2": times["K6"] / times["K2"],
+          "K2_witness_over_K2": times["K2_witness"] / times["K2"],
+          "K2_plan": _plan_line(torch, f.band, rw)})
     return {"launches": op_launches, "times": times, "bounds": bounds}
 
 
@@ -1717,6 +1936,7 @@ def main():
     phase_build()
     worst = phase_kernels(torch)
     worst.update(phase_fused_kernels(torch))
+    worst.update(phase_solve_witness(torch))
     phase_diag_step(torch)
     solve = phase_solve(torch, port)
     batch = phase_batch(torch, port, solve["iter_per_s_median"])
@@ -1758,6 +1978,23 @@ def main():
             "plain_ms": band118["times"][key + "_plain"],
             "bound_ms": band118["bounds"][key]["bound_ms"],
             "bound_by": band118["bounds"][key]["bound_by"],
+            "library_ms": None,
+        })
+    # the witness of K2 / K4 (their one-CTA predecessor): 0 launches on every
+    # solve path
+    # (asserted); this is its op path's count in the timing phases
+    for path, key, line in ((solve, "K2", 597), (batch, "K4", 620)):
+        kernels.append({
+            "name": f"banded_solve_reference_cuda ({key} witness)",
+            "route": "cuda",
+            "source": "madnlp_tpu_torch/csrc/banded_ldlt.cu",
+            "replaces": f"madnlp_tpu/ops/pallas_banded_stream.py:{line}",
+            "launches": path["witness_launches"],
+            "max_abs_err": worst[key + "_witness"],
+            "ms": path["times"][key + "_witness"],
+            "plain_ms": path["times"][key + "_plain"],
+            "bound_ms": path["bounds"][key]["bound_ms"],
+            "bound_by": path["bounds"][key]["bound_by"],
             "library_ms": None,
         })
     kernels.append({

@@ -24,8 +24,9 @@
 //   factor must be true f32).  But the block columns retire in strict order
 //   and each begins with the b×b diagonal LDLᵀ, a chain of b dependent pivot
 //   steps, so in practice the sequential diagonal step bounds it.
-//   K2 reads band and invL once per sweep: bound by bytes, but again a chain
-//   of nb dependent block mat-vecs.
+//   K2 reads P_j and invL_j once per sweep (8.69 MB in float32 at the
+//   flagship geometry, 2.6 µs at the card's 3.35 TB/s): bound by bytes,
+//   but again a chain of nb dependent block mat-vecs in each sweep.
 //
 // What the design does about that.
 //   K1: the host loops over block columns; per column it launches
@@ -46,9 +47,21 @@
 //     (d) a tiled SIMT GEMM over the (l, m, tile) grid for the trailing
 //         update  band[j+l, m] −= Lcol_{l+m}·X_lᵀ,
 //     spreading (b)-(d) over many SMs.
-//   K2: one CTA runs both sweeps (1024 threads, warp-per-row dot products
-//     for L⁻¹ and P, column-parallel partial sums for the transposed
-//     products); it needs no grid-wide synchronisation.
+//   K2: one thread-block cluster of C CTAs (up to 16, on as many SMs)
+//     runs both sweeps in one launch (cluster_solve_kernel, whose note
+//     has the details).  The forward sweep splits the rows of invL_j and
+//     P_j over the CTAs, the backward sweep their columns; the values that
+//     cross CTAs (r_j, z_j, the window of x) go straight into the other
+//     CTAs' shared memory (st.async, counted on their mbarriers), two
+//     exchanges per block column and sweep.  The factor does not depend on
+//     the right-hand side, so each CTA streams its slices into a ring of
+//     shared-memory stages by TMA, chunks ahead of the chain: what remains
+//     is the chain itself, 4·nb exchanges and the mat-vec latency between
+//     them.  The one-CTA solve it replaced (1024 threads for both sweeps,
+//     each load issued when the loop reached it: about 28 GB/s, one SM's
+//     latency-bound rate) stays as solve_reference_kernel, the card-side
+//     witness, which the cluster solve equals bit for bit (chip_smoke.py
+//     and tests/test_torch_gpu.py).
 //   All products are full-precision FMA loops (no tensor cores, no TF32).
 //   A pivot with |d| <= 1e-30 divides as inf, as in the TPU kernel: the
 //   inertia that drives the IPM's regularization ladder must match exactly.
@@ -58,8 +71,10 @@
 // The batched kernels K3 and K4 run the same __global__ bodies with a lane
 // index: every kernel takes the lane strides of its arrays and an optional
 // active mask (int32 per lane; null for K1/K2, whose launches have one lane
-// and zero strides).  A CTA of an inactive lane returns at once, so its
-// band, invL, d and right-hand side stay exactly as they were: that is how
+// and zero strides).  A CTA of an inactive lane returns at once (in K4 all
+// CTAs of a cluster read the same lane, so its whole cluster returns, before
+// any cluster barrier), so its band, invL, d and right-hand side stay
+// exactly as they were: that is how
 // the solver's masked δ-regularization ladder and its finished lanes cost
 // nothing and never overwrite a factor still in use.
 //   K3 is bound by operations: B times K1's, 1.969 GFLOP per lane at the
@@ -70,11 +85,20 @@
 //   scaling with the lane in blockIdx.y.  Launches per factorization stay
 //   4·nb whatever B is.
 //   K4 is bound by bytes: B times K2's, 8.69 MB per lane at the flagship
-//   geometry.  Its grid is (B,): one CTA per lane runs both sweeps of its
-//   lane, the lanes side by side on separate SMs.
+//   geometry, and 16 lanes' factors (218 MB) do not fit the 50 MB L2, so
+//   both sweeps stream them from device memory.  It is K2's kernel with
+//   one cluster per lane: the plan (ops/banded_kernels.py:solve_plan)
+//   takes the largest cluster size for which every lane's cluster is
+//   resident at once (cudaOccupancyMaxActiveClusters), so B·C SMs each
+//   keep their stage ring of loads in flight, where the one-CTA solve ran
+//   one SM per lane at one SM's latency-bound rate.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
+#include <stdint.h>
 
 #include "banded_diag.cuh"
 
@@ -277,13 +301,15 @@ int factorize(T* band, T* invL, T* d, T* xbuf, const int* active, int lanes,
   return (int)cudaGetLastError();
 }
 
-// K2 (grid 1) and K4 (grid B, one CTA per lane): both sweeps in one CTA,
-// in place on the lane's rhs ((nb+bw)·b × k, row-major).
+// The reference solve (the one-CTA K2 and K4 that cluster_solve_kernel
+// replaced, kept as its card-side witness, which it equals bit for bit):
+// one CTA per lane runs both sweeps, in place on the lane's rhs
+// ((nb+bw)·b × k, row-major).
 // Shared memory: rs (b·k), z (b·k), part (SOLVE_THREADS).
-// One CTA per SM, so that K4's lanes never share an SM's registers.
+// One CTA per SM, so that the lanes never share an SM's registers.
 template <typename T>
 __global__ void __launch_bounds__(SOLVE_THREADS, 1)
-solve_kernel(const T* __restrict__ band, const T* __restrict__ invL,
+solve_reference_kernel(const T* __restrict__ band, const T* __restrict__ invL,
              const T* __restrict__ d, T* __restrict__ rhs, int nb, int b,
              int bw, int k, size_t s_band, size_t s_invL, size_t s_d,
              size_t s_rhs, const int* __restrict__ active) {
@@ -370,17 +396,639 @@ solve_kernel(const T* __restrict__ band, const T* __restrict__ invL,
 }
 
 template <typename T>
-int solve(const T* band, const T* invL, const T* d, T* rhs, const int* active,
-          int lanes, int nb, int b, int bw, int k, cudaStream_t stream) {
+int solve_reference(const T* band, const T* invL, const T* d, T* rhs,
+                    const int* active, int lanes, int nb, int b, int bw, int k,
+                    cudaStream_t stream) {
   const size_t smem = (2 * (size_t)b * k + SOLVE_THREADS) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      solve_reference_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const size_t nbp = (size_t)nb + bw;
-  solve_kernel<T><<<lanes, SOLVE_THREADS, smem, stream>>>(
+  solve_reference_kernel<T><<<lanes, SOLVE_THREADS, smem, stream>>>(
       band, invL, d, rhs, nb, b, bw, k, nbp * (bw + 1) * b * b,
       nbp * b * b, (size_t)nb * b, nbp * b * k, active);
   return (int)cudaGetLastError();
+}
+
+// K2 (lanes = 1) and K4 (one cluster per lane): the cluster solve.
+//
+// C CTAs (a thread-block cluster) share one system.  CTA `rank` owns the
+// in-block indices [q0, q0 + nr), nr = b / C: in the forward sweep the rows
+// ρ of every block of r, z, invL_j and P_j, in the backward sweep the
+// columns q of every block of x and of invL_j and P_j.  So each CTA only
+// ever reads and writes its own rows of the lane's rhs in global memory.
+// What crosses CTAs, two exchanges per block column and sweep, goes into
+// every CTA's shared memory by st.async, each store counting its bytes on
+// an mbarrier of the receiving CTA, which waits for the bytes it expects
+// (a cluster barrier costs 0.8 µs even on one CTA, its cluster-scope
+// fence: tools/cluster_barrier_probe.cu, PERF.md):
+//   xw   forward: r_j, all b rows (k × b); backward: the window of x_m,
+//        slot m mod (bw+1) ((bw+1) × k × b);
+//   zf   z_j, all b rows (k × b), in two buffers by the parity of j: a CTA
+//        may send z_{j+1} while another still reads z_j;
+//   part the backward sweep's strided partial sums of the owned columns
+//        (k × S × nr), S = SOLVE_THREADS / b as in the reference.
+// The factor's slices a CTA reads do not depend on the right-hand side: a
+// ring of `stages` shared-memory stages streams them ahead of the chain by
+// TMA box copies, chunk after chunk, across block columns and from the
+// forward sweep into the backward one.  A block column's slices form
+// (bw+1)·nr forward rows of b elements (rows ρ of invL_j, then rows
+// (l, ρ) of P_j) or (bw+1)·b backward rows of nr elements (the owned
+// columns of the rows of P_j, then of invL_j); a chunk is up to `rows`
+// forward rows or rows·C backward rows, a whole block column where the
+// stages fit it, so both sweeps take the same number of chunks per block
+// column.  One thread off the chain issues a chunk's copies (three at the
+// flagship's geometry): issued by every thread with cp.async, the copies
+// held each thread up for a large part of a block column's time.
+//
+// Bit for bit the reference: every output element keeps its one
+// accumulator and its order of terms (forward: a warp per row, lane ℓ
+// summing q = ℓ, ℓ+32, … then the shuffle tree 16, 8, 4, 2, 1; backward:
+// the S strided chains i ≡ s (mod S) in row order, then their sum in the
+// order s = 0..S-1 from 0), the same FMA contraction, the same division,
+// subtraction and zero padding.  Only the CTA and warp that own it change.
+constexpr int CLUSTER_THREADS = 512;
+constexpr int MAX_CLUSTER = 16;
+constexpr int MAX_STAGES = 8;
+constexpr size_t SMEM_LIMIT = 232448;
+
+// Shared memory of the cluster solve, in elements after the barriers'
+// BARRIER_BYTES: the stages, xw, the two zf, part.
+inline size_t cluster_smem_elems(int b, int bw, int k, int C, int rows,
+                                 int stages) {
+  const size_t nr = b / C, S = SOLVE_THREADS / b;
+  return (size_t)stages * rows * b + (size_t)(bw + 3) * b * k + nr * S * k;
+}
+
+template <typename T>
+struct ClusterSolve {
+  // the tensor maps of band and invL as 2-D arrays of rows of b elements
+  // (every lane): boxes of `box` rows × b for the forward sweep's copies,
+  // of box·C rows × b/C for the backward sweep's
+  CUtensorMap band_f, invL_f, band_b, invL_b;
+  const T* d;
+  T* rhs;
+  const int* active;
+  int nb, b, bw, k;
+  size_t s_d, s_rhs;         // lane strides, in elements
+  int C, rows, stages, box;  // the launch plan
+};
+
+// 2-D TMA copy of the box at (x, y) of `map` into shared memory at `dst`
+// (128-byte aligned), counted on the mbarrier `bar`
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map,
+                                            int x, int y, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+         "r"(bar) : "memory");
+}
+
+// order this CTA's earlier generic accesses to shared memory before the
+// async proxy's (the TMA writes into a stage the CTA has read)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
+
+// The exchanges between the CTAs of a cluster: st.async stores a value
+// into another CTA's shared memory and counts its bytes on an mbarrier
+// there; the receiver, whose thread 0 states the bytes it expects, waits
+// for the barrier's phase (acquire at cluster scope).  A wait that never
+// ends traps (after about a second) instead of hanging the card.
+constexpr int BARRIER_BYTES = 128;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the address of this CTA's shared address `a` in CTA `rank`'s shared memory
+__device__ __forceinline__ unsigned mapa(unsigned a, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("{\n .reg .b64 state;\n"
+               " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  long long spins = 0;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && ++spins > (1ll << 26)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void st_async(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async(unsigned addr, double v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n"
+               :: "r"(addr), "l"(__double_as_longlong(v)), "r"(bar) : "memory");
+}
+
+// The m-th (row, column) pair a warp takes of rows [lo, hi) × k columns,
+// rows dealt round robin over nwarps warps, columns outermost: false if
+// the warp has fewer pairs.
+__device__ __forceinline__ bool warp_pair(int m, int lo, int hi, int warp,
+                                          int nwarps, int& r, int& c) {
+  const int rows = hi - lo - warp <= 0 ? 0 : (hi - lo - warp + nwarps - 1) / nwarps;
+  if (rows == 0) return false;
+  c = m / rows;
+  r = lo + warp + (m - c * rows) * nwarps;
+  return true;
+}
+
+// Chunk t of the solve's stream: block column j, forward or backward
+// sweep, the column's rows [r0, r0 + n) in that sweep's row order.
+struct Chunk {
+  int j, r0, n;
+  bool fwd;
+};
+
+struct ChunkPlan {
+  int nb, per, rf, rb, frows, brows;   // chunks per column, rows per chunk
+
+  __device__ __forceinline__ Chunk at(int t) const {
+    Chunk ch;
+    ch.fwd = t < nb * per;
+    if (!ch.fwd) t -= nb * per;
+    const int step = t / per, u = t - step * per;
+    ch.j = ch.fwd ? step : nb - 1 - step;
+    const int r = ch.fwd ? rf : rb;
+    ch.r0 = u * r;
+    ch.n = min(r, (ch.fwd ? frows : brows) - ch.r0);
+    return ch;
+  }
+};
+
+// Stage chunk `ch` of lane `lane_idx`'s factor into `dst` by TMA box
+// copies (issued by one thread), their bytes counted on the stage's
+// mbarrier `bar`: forward boxes of a.box rows of invL_j or of one block of
+// P_j, backward boxes of a.box·C rows of nr columns.
+template <typename T, int B>
+__device__ __forceinline__ void issue_chunk(const Chunk& ch, T* dst,
+                                            const ClusterSolve<T>& a,
+                                            unsigned bar, int lane_idx,
+                                            int lnr, int q0) {
+  const int nr = 1 << lnr, bw = a.bw, nbp = a.nb + bw;
+  const int yb = lane_idx * nbp * (bw + 1) * B;   // the lane's first band row
+  const int yi = lane_idx * nbp * B;              // and invL row
+  const unsigned d0 = smem_u32(dst);
+  mbar_expect_tx(bar, (unsigned)(ch.n * (ch.fwd ? B : nr) * sizeof(T)));
+  if (ch.fwd) {
+    for (int r = ch.r0; r < ch.r0 + ch.n; r += a.box) {
+      const unsigned to = d0 + (unsigned)((r - ch.r0) * B * sizeof(T));
+      if (r < nr)
+        tma_load_2d(to, &a.invL_f, 0, yi + ch.j * B + q0 + r, bar);
+      else
+        tma_load_2d(to, &a.band_f, 0,
+                    yb + (ch.j * (bw + 1) + 1 + ((r - nr) >> lnr)) * B + q0 +
+                        ((r - nr) & (nr - 1)),
+                    bar);
+    }
+  } else {
+    const int split = bw * B;
+    for (int i = ch.r0; i < ch.r0 + ch.n; i += a.box * (B >> lnr)) {
+      const unsigned to = d0 + (unsigned)((i - ch.r0) * nr * sizeof(T));
+      if (i < split)
+        tma_load_2d(to, &a.band_b, q0, yb + (ch.j * (bw + 1) + 1) * B + i, bar);
+      else
+        tma_load_2d(to, &a.invL_b, q0, yi + ch.j * B + (i - split), bar);
+    }
+  }
+}
+
+// lane 0's dot product of a row with x, over q = lane, lane + 32, … in
+// order, then the shuffle tree (the reference's warp-per-row order)
+template <typename T, int B>
+__device__ __forceinline__ T warp_dot(const T* __restrict__ av,
+                                      const T* __restrict__ xv, int lane) {
+  T acc = 0;
+#pragma unroll
+  for (int u = 0; u < B / 32; ++u) acc += av[lane + 32 * u] * xv[lane + 32 * u];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
+template <typename T, int B>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+cluster_solve_kernel(const __grid_constant__ ClusterSolve<T> a) {
+  namespace cg = cooperative_groups;
+  constexpr int S = SOLVE_THREADS / B, LS = S == 4 ? 2 : S == 8 ? 3
+                                               : S == 16 ? 4 : 5;
+  constexpr int LB = B == 32 ? 5 : B == 64 ? 6 : B == 128 ? 7 : 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.C;
+  const int lane_idx = blockIdx.x / C;
+  // every CTA of a cluster reads the same lane: the whole cluster returns
+  if (!lane_on(a.active, lane_idx)) return;
+  const T* d = a.d + lane_idx * a.s_d;
+  T* rhs = a.rhs + lane_idx * a.s_rhs;
+  const int nb = a.nb, bw = a.bw, k = a.k;
+  const int nr = B / C, lnr = ilog2(nr);
+  const int q0 = (int)cluster.block_rank() * nr;
+  const int NS = a.stages, stage_elems = a.rows * B;
+  const int frows = (bw + 1) * nr, brows = (bw + 1) * B;
+  const int fsplit = nr, bsplit = bw * B;   // invL | P rows, P | invL rows
+  const int per = (frows + a.rows - 1) / a.rows;
+  const ChunkPlan plan{nb, per, a.rows, a.rows * C, frows, brows};
+  const int total = 2 * nb * per;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32, nwarps = nt / 32;
+  const unsigned FULL = 0xffffffffu;
+  const unsigned XBYTES = (unsigned)(B * k * sizeof(T));   // one exchange
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // mbarriers: [0] r_{j+1} (forward) / x_j (backward), [1 + p] z_j,
+  // p = j & 1; [3 + s] stage s filled
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  T* stage = reinterpret_cast<T*>(smem_raw + BARRIER_BYTES);
+  T* xw = stage + (size_t)NS * stage_elems;
+  T* zf2 = xw + (size_t)(bw + 1) * k * B;
+  T* part = zf2 + (size_t)2 * k * B;
+  if (tid == 0) {
+    for (int i = 0; i < 3 + NS; ++i) mbar_init(smem_u32(bars + i), 1);
+    fence_mbarrier_init();
+    // the first NS-1 chunks in flight
+    for (int t = 0; t < NS - 1 && t < total; ++t)
+      issue_chunk<T, B>(plan.at(t), stage + (size_t)t * stage_elems, a,
+                        smem_u32(bars + 3 + t), lane_idx, lnr, q0);
+  }
+  for (int e = tid; e < B * k; e += nt) xw[(e % k) * B + e / k] = rhs[e];   // r_0
+  // every CTA of the cluster runs, its barriers are initialized, and it
+  // has read r_0 (which its owners overwrite from here)
+  cluster.sync();
+  // lane ℓ < C of every warp sends a broadcast value to CTA ℓ: its shared
+  // addresses there
+  const unsigned to_rank = lane < C ? lane : 0;
+  const unsigned xw_at = mapa(smem_u32(xw), to_rank);
+  const unsigned zf_at = mapa(smem_u32(zf2), to_rank);
+  const unsigned xbar_at = mapa(smem_u32(bars), to_rank);
+  const unsigned zbar_at = mapa(smem_u32(bars + 1), to_rank);
+  unsigned xph = 0, zph[2] = {0, 0};
+  // wait until the exchange on barrier i is complete (thread 0 states the
+  // bytes it brings), then flip its phase
+  auto exchanged = [&](int i, unsigned& ph) {
+    if (tid == 0) mbar_expect_tx(smem_u32(bars + i), XBYTES);
+    mbar_wait(smem_u32(bars + i), ph);
+    ph ^= 1;
+  };
+
+  for (int t = 0; t < total; ++t) {
+    // chunk t+NS-1 into the stage every thread finished reading in chunk
+    // t-1, by lane 0 of the last warp, off the chain: in the forward sweep
+    // once its rows of r_{j+1} are sent, in the backward sweep first (the
+    // strided chains leave that warp idle where nr·S·k < nt - 32)
+    bool issued = tid != nt - 32 || t + NS - 1 >= total;
+    auto issue_next = [&]() {
+      if (issued) return;
+      issued = true;
+      const int sg = (t + NS - 1) % NS;
+      fence_proxy_async();
+      issue_chunk<T, B>(plan.at(t + NS - 1), stage + (size_t)sg * stage_elems,
+                        a, smem_u32(bars + 3 + sg), lane_idx, lnr, q0);
+    };
+    const Chunk ch = plan.at(t);
+    const int j = ch.j, end = ch.r0 + ch.n, p = j & 1;
+    const int fmid = min(max(fsplit, ch.r0), end);
+    // the global values the forward chain reads, loaded ahead where a warp
+    // has more than two rows (with fewer, each row's load hides behind its
+    // own dot product, and loading ahead costs more than it saves): lane m
+    // of a warp takes its m-th invL pair's pivot and m-th P pair's running
+    // rhs value (both final before this chunk), handed over by shuffles
+    const bool many_d = ch.fwd && (fmid - ch.r0) * k > 2 * nwarps;
+    const bool many_r = ch.fwd && (end - fmid) * k > 2 * nwarps;
+    T pre_d = 0, pre_r = 0;
+    {
+      int r, c;
+      if (many_d && warp_pair(lane, ch.r0, fmid, warp, nwarps, r, c) && c < k)
+        pre_d = d[(size_t)j * B + q0 + r];
+      if (many_r && warp_pair(lane, fmid, end, warp, nwarps, r, c) && c < k)
+        pre_r = rhs[((size_t)(j + 1 + ((r - fsplit) >> lnr)) * B + q0 +
+                     ((r - fsplit) & (nr - 1))) * k + c];
+    }
+    mbar_wait(smem_u32(bars + 3 + t % NS), (t / NS) & 1);   // chunk t landed
+    const T* st = stage + (size_t)(t % NS) * stage_elems;
+    T* zf = zf2 + (size_t)p * k * B;
+    if (ch.fwd) {
+      // rows [r0, mid) of invL_j: z_j[ρ] = invL_j[ρ, :]·r_j to every CTA,
+      // and r_j[ρ] <- z_j[ρ] / d;  rows [mid, end) of P_j:
+      // r_{j+1+l}[ρ] −= P_j[(l, ρ), :]·z_j, the last update of r_{j+1}
+      // (l = 0) straight to every CTA's xw
+      const int mid = fmid;
+      if (ch.r0 < mid) {
+        if (ch.r0 == 0 && j > 0) exchanged(0, xph);   // r_j
+        int m = 0;
+        for (int c = 0; c < k; ++c) {
+          for (int r = ch.r0 + warp; r < mid; r += nwarps, ++m) {
+            const int rho = q0 + r;
+            const T acc = warp_dot<T, B>(st + (size_t)(r - ch.r0) * B,
+                                         xw + (size_t)c * B, lane);
+            const T v = __shfl_sync(FULL, acc, 0);
+            if (lane < C)
+              st_async(zf_at + (unsigned)(((p * k + c) * B + rho) * sizeof(T)),
+                       v, zbar_at + p * 8);
+            const T dv = many_d && m < 32 ? __shfl_sync(FULL, pre_d, m)
+                                          : d[(size_t)j * B + rho];
+            if (lane == 0) rhs[((size_t)j * B + rho) * k + c] = v / pivot_div(dv);
+          }
+        }
+      }
+      if (mid < end) {
+        if (mid == fsplit) exchanged(1 + p, zph[p]);   // z_j
+        int m = 0;
+        for (int c = 0; c < k; ++c) {
+          for (int r = mid + warp; r < end; r += nwarps, ++m) {
+            const int l = (r - fsplit) >> lnr;
+            if (l > 0) issue_next();
+            const int rho = q0 + ((r - fsplit) & (nr - 1));
+            T* dst = rhs + ((size_t)(j + 1 + l) * B + rho) * k + c;
+            const bool pre = many_r && m < 32;
+            const T old0 = !pre && lane == 0 ? *dst : T(0);
+            const T acc = warp_dot<T, B>(st + (size_t)(r - ch.r0) * B,
+                                         zf + (size_t)c * B, lane);
+            const T old = pre ? __shfl_sync(FULL, pre_r, m) : old0;
+            if (l == 0) {
+              const T v = __shfl_sync(FULL, old - acc, 0);
+              if (lane < C && j + 1 < nb)
+                st_async(xw_at + (unsigned)((c * B + rho) * sizeof(T)), v,
+                         xbar_at);
+            } else if (lane == 0) {
+              *dst = old - acc;
+            }
+          }
+        }
+      }
+      issue_next();
+      __syncthreads();
+      if (end == frows && j == nb - 1) {
+        // end of the forward sweep: zero the padding rows this CTA owns,
+        // and the x window (its slots for blocks nb.. are read as zeros)
+        for (int e = tid; e < bw * nr * k; e += nt) {
+          const int c = e % k, rr = e / k;
+          rhs[((size_t)(nb + (rr >> lnr)) * B + q0 + (rr & (nr - 1))) * k + c] = T(0);
+        }
+        for (int e = tid; e < (bw + 1) * k * B; e += nt) xw[e] = T(0);
+        __syncthreads();
+      }
+    } else {
+      // rows [r0, mid) of P_j, then rows [mid, end) of invL_j, as strided
+      // chains over the owned columns; at the end of each part the chains'
+      // sums give z_j[q] = w_j[q] − (P_jᵀ x_{j+1..j+bw})[q], then
+      // x_j[q] = (invL_jᵀ z_j)[q], each sent to every CTA
+      const int mid = min(max(bsplit, ch.r0), end);
+      const bool one = nr * k <= nt;   // one final sum per thread
+      issue_next();
+      for (int seg = 0; seg < 2; ++seg) {
+        const bool inv = seg == 1;
+        const int lo = inv ? mid : ch.r0, hi = inv ? end : mid;
+        if (lo >= hi) continue;
+        const int base = inv ? bsplit : 0;   // first row of the part
+        const bool closes = inv ? hi == brows : hi == bsplit;
+        if (lo == base) {
+          if (inv) exchanged(1 + p, zph[p]);        // z_j
+          else if (j + 1 < nb) exchanged(0, xph);   // x_{j+1}
+        }
+        T wpre = 0;
+        if (!inv && closes && one && tid < nr * k)
+          wpre = rhs[((size_t)j * B + q0 + (tid & (nr - 1))) * k + (tid >> lnr)];
+        for (int e = tid; e < (nr * k) << LS; e += nt) {
+          const int ql = e & (nr - 1), s = (e >> lnr) & (S - 1);
+          const int c = e >> (lnr + LS);
+          T acc = lo == base ? T(0) : part[e];
+          int i = lo + ((s - (lo - base)) & (S - 1));   // i - base ≡ s (mod S)
+          const T* sp = st + ((i - ch.r0) << lnr) + ql;
+          const int sstep = S << lnr;
+          while (i < hi) {
+            // the rows of one block of x (or of z) at a time
+            const int l = inv ? 0 : i >> LB;
+            const int bhi = inv ? hi : min(hi, (l + 1) << LB);
+            const T* xv = inv ? zf + (size_t)c * B + (i - bsplit)
+                              : xw + ((size_t)((j + 1 + l) % (bw + 1)) * k + c) * B
+                                    + (i - (l << LB));
+            const int n = (bhi - i + S - 1) / S;
+#pragma unroll 16
+            for (int u = 0; u < n; ++u, sp += sstep, xv += S) acc += *sp * *xv;
+            i += n * S;
+          }
+          part[e] = acc;
+        }
+        __syncthreads();
+        if (!closes) continue;
+        for (int e = tid; e < nr * k; e += nt) {
+          const int ql = e & (nr - 1), c = e >> lnr, q = q0 + ql;
+          T t = 0;
+#pragma unroll
+          for (int u = 0; u < S; ++u) t += part[((c * S + u) << lnr) + ql];
+          T* w = rhs + ((size_t)j * B + q) * k + c;
+          if (inv) {
+            *w = t;
+            if (j > 0) {
+              const unsigned off = (unsigned)((((j % (bw + 1)) * k + c) * B + q)
+                                              * sizeof(T));
+              for (int rk = 0; rk < C; ++rk)
+                st_async(mapa(smem_u32(xw), rk) + off, t,
+                         mapa(smem_u32(bars), rk));
+            }
+          } else {
+            const T v = (one ? wpre : *w) - t;
+            const unsigned off = (unsigned)(((p * k + c) * B + q) * sizeof(T));
+            for (int rk = 0; rk < C; ++rk)
+              st_async(mapa(smem_u32(zf2), rk) + off, v,
+                       mapa(smem_u32(bars + 1 + p), rk));
+          }
+        }
+        __syncthreads();   // part[] is read
+      }
+      issue_next();
+    }
+  }
+  // every exchange this CTA takes part in has completed at its receivers
+  // only when they waited; no CTA leaves while another may still write
+  // to its shared memory
+  cluster.sync();
+}
+
+// The launch attribute that makes a grid of clusters of C CTAs.
+inline cudaLaunchAttribute cluster_dim(int C) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
+// Raise cluster_solve_kernel<T, B>'s shared-memory limit to `smem` and,
+// for clusters of more than 8 CTAs, allow the non-portable sizes.
+template <typename T, int B>
+cudaError_t cluster_attributes(size_t smem, int C) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cluster_solve_kernel<T, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(cluster_solve_kernel<T, B>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  return err;
+}
+
+template <typename T, int B>
+int launch_cluster(const ClusterSolve<T>& a, int lanes, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cluster_attributes<T, B>(smem, a.C);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_dim(a.C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(lanes * a.C);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cluster_solve_kernel<T, B>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K2 / K4 on `lanes` clusters of a.C CTAs.  Returns a CUDA error code;
+// cudaErrorInvalidValue for a plan the kernel cannot take.
+template <typename T>
+int solve_cluster(const ClusterSolve<T>& a, int lanes, cudaStream_t stream) {
+  const int C = a.C;
+  if (C < 1 || C > MAX_CLUSTER || (C & (C - 1)) || a.b % C ||
+      (a.b / C) * sizeof(T) % 16 || a.rows < 1 || a.stages < 2 ||
+      a.stages > MAX_STAGES || lanes < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      BARRIER_BYTES +
+      cluster_smem_elems(a.b, a.bw, a.k, C, a.rows, a.stages) * sizeof(T);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  switch (a.b) {
+    case 32: return launch_cluster<T, 32>(a, lanes, smem, stream);
+    case 64: return launch_cluster<T, 64>(a, lanes, smem, stream);
+    case 128: return launch_cluster<T, 128>(a, lanes, smem, stream);
+    case 256: return launch_cluster<T, 256>(a, lanes, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// How many clusters of C CTAs of the cluster solve can be resident at
+// once, at the most shared memory a CTA may use (one CTA per SM, as its
+// launch bounds also ask; the same for every block size).
+template <typename T>
+int max_active_clusters(int C, int* out) {
+  cudaError_t err = cluster_attributes<T, 256>(SMEM_LIMIT, C);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_dim(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = SMEM_LIMIT;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (const void*)cluster_solve_kernel<T, 256>, &cfg);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of `rows` rows of b elements at `base`, in boxes of
+// box_y rows × box_x elements.
+template <typename T>
+bool tensor_map(CUtensorMap* map, const T* base, size_t rows, int b, int box_x,
+                int box_y) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)b, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)b * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_x, (cuuint32_t)box_y};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map,
+             sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+             2, (void*)base, dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+int solve_lanes(const T* band, const T* invL, const T* d, T* rhs,
+                const int* active, int lanes, int nb, int b, int bw, int k,
+                int C, int rows, int stages, cudaStream_t stream) {
+  const size_t nbp = (size_t)nb + bw;
+  if (C < 1 || b % C || rows < 1) return (int)cudaErrorInvalidValue;
+  const int nr = b / C;
+  int box = nr;   // the largest power of two dividing both rows and nr
+  while (rows % box) box >>= 1;
+  ClusterSolve<T> a;
+  const size_t band_rows = (size_t)lanes * nbp * (bw + 1) * b;
+  const size_t invL_rows = (size_t)lanes * nbp * b;
+  if (!tensor_map(&a.band_f, band, band_rows, b, b, box) ||
+      !tensor_map(&a.invL_f, invL, invL_rows, b, b, box) ||
+      !tensor_map(&a.band_b, band, band_rows, b, nr, box * C) ||
+      !tensor_map(&a.invL_b, invL, invL_rows, b, nr, box * C))
+    return (int)cudaErrorInvalidValue;
+  a.d = d;
+  a.rhs = rhs;
+  a.active = active;
+  a.nb = nb;
+  a.b = b;
+  a.bw = bw;
+  a.k = k;
+  a.s_d = (size_t)nb * b;
+  a.s_rhs = nbp * b * k;
+  a.C = C;
+  a.rows = rows;
+  a.stages = stages;
+  a.box = box;
+  return solve_cluster(a, lanes, stream);
 }
 
 // The diagonal step alone on `lanes` contiguous blocks A (lanes, b, b), R
@@ -433,21 +1081,6 @@ int banded_factorize_f64(void* band, void* invL, void* d, void* xbuf, int nb,
                            (cudaStream_t)stream);
 }
 
-// K2
-int banded_solve_f32(void* band, void* invL, void* d, void* rhs, int nb, int b,
-                     int bw, int k, void* stream) {
-  return solve<float>((const float*)band, (const float*)invL, (const float*)d,
-                      (float*)rhs, nullptr, 1, nb, b, bw, k,
-                      (cudaStream_t)stream);
-}
-
-int banded_solve_f64(void* band, void* invL, void* d, void* rhs, int nb, int b,
-                     int bw, int k, void* stream) {
-  return solve<double>((const double*)band, (const double*)invL,
-                       (const double*)d, (double*)rhs, nullptr, 1, nb, b, bw,
-                       k, (cudaStream_t)stream);
-}
-
 // K3
 int banded_factorize_batched_f32(void* band, void* invL, void* d, void* xbuf,
                                  void* active, int lanes, int nb, int b,
@@ -467,21 +1100,55 @@ int banded_factorize_batched_f64(void* band, void* invL, void* d, void* xbuf,
                            (cudaStream_t)stream);
 }
 
-// K4
-int banded_solve_batched_f32(void* band, void* invL, void* d, void* rhs,
+// K2 (lanes = 1, active may be null) and K4: the cluster solve, with the
+// launch plan (C CTAs per lane, rows per stage, stages) from
+// ops/banded_kernels.py:solve_plan
+int banded_solve_cluster_f32(void* band, void* invL, void* d, void* rhs,
                              void* active, int lanes, int nb, int b, int bw,
-                             int k, void* stream) {
-  return solve<float>((const float*)band, (const float*)invL, (const float*)d,
-                      (float*)rhs, (const int*)active, lanes, nb, b, bw, k,
-                      (cudaStream_t)stream);
+                             int k, int C, int rows, int stages,
+                             void* stream) {
+  return solve_lanes<float>((const float*)band, (const float*)invL,
+                            (const float*)d, (float*)rhs, (const int*)active,
+                            lanes, nb, b, bw, k, C, rows, stages,
+                            (cudaStream_t)stream);
 }
 
-int banded_solve_batched_f64(void* band, void* invL, void* d, void* rhs,
+int banded_solve_cluster_f64(void* band, void* invL, void* d, void* rhs,
                              void* active, int lanes, int nb, int b, int bw,
-                             int k, void* stream) {
-  return solve<double>((const double*)band, (const double*)invL,
-                       (const double*)d, (double*)rhs, (const int*)active,
-                       lanes, nb, b, bw, k, (cudaStream_t)stream);
+                             int k, int C, int rows, int stages,
+                             void* stream) {
+  return solve_lanes<double>((const double*)band, (const double*)invL,
+                             (const double*)d, (double*)rhs,
+                             (const int*)active, lanes, nb, b, bw, k, C, rows,
+                             stages, (cudaStream_t)stream);
+}
+
+// clusters of C CTAs of the cluster solve resident at once (into *out)
+int banded_solve_max_clusters_f32(int C, int* out) {
+  return max_active_clusters<float>(C, out);
+}
+
+int banded_solve_max_clusters_f64(int C, int* out) {
+  return max_active_clusters<double>(C, out);
+}
+
+// the reference solve (the one-CTA K2 / K4), the witness of the cluster solve
+int banded_solve_reference_f32(void* band, void* invL, void* d, void* rhs,
+                               void* active, int lanes, int nb, int b, int bw,
+                               int k, void* stream) {
+  return solve_reference<float>((const float*)band, (const float*)invL,
+                                (const float*)d, (float*)rhs,
+                                (const int*)active, lanes, nb, b, bw, k,
+                                (cudaStream_t)stream);
+}
+
+int banded_solve_reference_f64(void* band, void* invL, void* d, void* rhs,
+                               void* active, int lanes, int nb, int b, int bw,
+                               int k, void* stream) {
+  return solve_reference<double>((const double*)band, (const double*)invL,
+                                 (const double*)d, (double*)rhs,
+                                 (const int*)active, lanes, nb, b, bw, k,
+                                 (cudaStream_t)stream);
 }
 
 // the diagonal step of K1 / K3 alone

@@ -10,15 +10,19 @@
   ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_call_batched``;
 * :func:`banded_diag_step_cuda` launches the diagonal step of K1 and K3
   alone (``pallas_banded.py:_ldlt_with_inverse``), for timing it and for
-  holding it bit for bit against the scalar routine K5 keeps.
+  holding it bit for bit against the scalar routine K5 keeps;
+* :func:`banded_solve_reference_cuda` launches the one-CTA-per-lane solve
+  that K2 and K4 replaced, the card-side witness they equal bit for bit
+  (no solve path reaches it).
 
-All four are CUDA C++ for ``sm_90a`` in ``csrc/banded_ldlt.cu`` (K3 and K4
-run K1's and K2's kernel bodies with a lane index), compiled by ``nvcc``
-into ``build/kernels/`` at first use and loaded with ``ctypes``.  Each
-wrapper checks device, dtype, shape and contiguity, allocates the scratch
-it needs with ``torch.empty``, launches on the current stream, raises if
-the C entry returns a CUDA error, and counts its launches in its
-``launches`` attribute.
+All are CUDA C++ for ``sm_90a`` in ``csrc/banded_ldlt.cu`` (K3 runs K1's
+kernels with a lane index, K2 and K4 are one kernel over one thread-block
+cluster per lane, launched with the plan of :func:`solve_plan`), compiled
+by ``nvcc`` into ``build/kernels/`` at first use and loaded with
+``ctypes``.  Each wrapper checks device, dtype, shape and contiguity,
+allocates the scratch it needs with ``torch.empty``, launches on the
+current stream, raises if the C entry returns a CUDA error, and counts its
+launches in its ``launches`` attribute.
 
 :func:`factorize` / :func:`solve` (one system) and
 :func:`factorize_batched` / :func:`solve_batched` (a batch of lanes under
@@ -36,6 +40,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +54,17 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libbanded_ldlt.so")
 SUPPORTED_BLOCKS = (32, 64, 128, 256)
+
+# The cluster solve (K2, K4): csrc/banded_ldlt.cu's SMEM_LIMIT (the shared
+# memory a CTA may use on the H100), BARRIER_BYTES (its mbarriers),
+# MAX_STAGES, and the cluster sizes it takes, largest first.  Its backward
+# sweep keeps the reference's strided partial sums: SOLVE_THREADS / b
+# chains per column.
+SMEM_LIMIT = 232448
+BARRIER_BYTES = 128
+MAX_STAGES = 8
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+SOLVE_THREADS = 1024
 
 _lib = None
 
@@ -105,18 +121,24 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
             fn.restype = ci
-        for name in ("banded_solve_f32", "banded_solve_f64"):
+        for name in ("banded_solve_cluster_f32", "banded_solve_cluster_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp] + [ci] * 8 + [vp]
+            fn.restype = ci
+        for name in ("banded_solve_reference_f32",
+                     "banded_solve_reference_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            fn.restype = ci
+        for name in ("banded_solve_max_clusters_f32",
+                     "banded_solve_max_clusters_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ci, ctypes.POINTER(ci)]
             fn.restype = ci
         for name in ("banded_factorize_batched_f32",
                      "banded_factorize_batched_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-            fn.restype = ci
-        for name in ("banded_solve_batched_f32", "banded_solve_batched_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
         for name in ("banded_diag_step_f32", "banded_diag_step_f64"):
             fn = getattr(lib, name)
@@ -171,33 +193,148 @@ def banded_factorize_cuda(band, invL, d, nb: int, b: int, bw: int):
 banded_factorize_cuda.launches = 0
 
 
-def banded_solve_cuda(band, invL, d, rhs):
-    """K2: solve in place on ``rhs ((nb+bw)·b, k)`` (permuted, zero
-    padded) with the factor from :func:`banded_factorize_cuda`; the padding
-    rows of the result are zero."""
+class SolvePlan(NamedTuple):
+    """The launch plan of the cluster solve: ``clusters`` CTAs per lane,
+    ``rows`` forward rows (of b elements) per shared-memory stage, a ring
+    of ``stages`` stages, ``smem`` bytes of shared memory per CTA."""
+    clusters: int
+    rows: int
+    stages: int
+    smem: int
+
+
+def solve_plan(lanes: int, b: int, bw: int, k: int, dtype,
+               max_clusters) -> SolvePlan:
+    """The cluster solve's launch plan for ``lanes`` systems of block
+    ``b`` and bandwidth ``bw`` with ``k`` right-hand sides; ``max_clusters``
+    maps a cluster size C to the clusters of C CTAs the card keeps resident
+    at once (:func:`max_clusters`).
+
+    C is the largest size in :data:`CLUSTER_SIZES` that divides b into
+    column slices of whole 16-byte vectors and leaves all lanes' clusters
+    resident in one wave (C = 1 always qualifies); a stage holds up to the
+    (bw+1)·b/C rows of b elements a CTA reads of one block column (all of
+    them where two stages fit), in whole TMA boxes (a multiple of the
+    largest power of two up to 16 and b/C that it holds), and the ring as
+    many stages as fit, at least two and at most :data:`MAX_STAGES`.
+    Raises ``ValueError`` where no plan fits the shared memory (a k too
+    large)."""
+    item = torch.finfo(dtype).bits // 8
+    slices = SOLVE_THREADS // b
+    for C in CLUSTER_SIZES:
+        nr = b // C
+        if b % C or nr * item % 16:
+            continue
+        if C > 1 and max_clusters.get(C, 0) < lanes:
+            continue
+        fixed = BARRIER_BYTES + ((bw + 3) * b * k + nr * slices * k) * item
+        room = SMEM_LIMIT - fixed
+        rows = min((bw + 1) * nr, room // (2 * b * item))
+        if rows < 1:
+            continue
+        # whole TMA boxes of up to 16 rows
+        box = 1 << (min(nr, rows, 16).bit_length() - 1)
+        rows -= rows % box
+        stages = min(MAX_STAGES, room // (rows * b * item))
+        return SolvePlan(C, rows, stages, fixed + stages * rows * b * item)
+    raise ValueError(f"no cluster-solve plan fits {k} right-hand sides at "
+                     f"b={b}, bw={bw}, {dtype} in {SMEM_LIMIT} bytes of "
+                     f"shared memory")
+
+
+_max_clusters = {}
+
+
+def max_clusters(dtype, device=None) -> dict:
+    """{C: clusters of C CTAs of the cluster solve the card keeps resident
+    at once}, from ``cudaOccupancyMaxActiveClusters`` at one CTA per SM;
+    queried once per device and dtype."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (index, dtype)
+    if key not in _max_clusters:
+        fn = getattr(load(), "banded_solve_max_clusters_" + _SUFFIX[dtype])
+        out = {}
+        with torch.cuda.device(index):
+            for C in CLUSTER_SIZES:
+                n = ctypes.c_int(0)
+                err = fn(C, ctypes.byref(n))
+                if err:
+                    raise RuntimeError(f"cudaOccupancyMaxActiveClusters "
+                                       f"(C={C}): CUDA error {err}")
+                out[C] = n.value
+        _max_clusters[key] = out
+    return _max_clusters[key]
+
+
+def _check_solve(name, band, invL, d, rhs, lanes):
+    """Shapes of a solve's operands: ``band (lanes?, nb+bw, bw+1, b, b)``,
+    ``invL (lanes?, nb+bw, b, b)``, ``d`` (lanes, ≥ nb·b) or, for one
+    system, a vector of ≥ nb·b pivots, ``rhs (lanes?, (nb+bw)·b, k)``;
+    returns (nb, b, bw, k)."""
     if not band.is_cuda:
-        raise ValueError("banded_solve_cuda needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     if band.dtype not in _SUFFIX:
         raise TypeError(f"unsupported dtype {band.dtype}")
-    nbp, bw1, b, _ = band.shape
+    lead = () if lanes is None else (lanes,)
+    if band.ndim != len(lead) + 4 or rhs.ndim != len(lead) + 2:
+        raise ValueError("band must be (nb+bw, bw+1, b, b) and rhs "
+                         "((nb+bw)·b, k), with a leading lane axis for "
+                         "a batch")
+    nbp, bw1, b, _ = band.shape[len(lead):]
     bw = bw1 - 1
     nb = nbp - bw
     if b not in SUPPORTED_BLOCKS:
         raise ValueError(f"block size {b} not in {SUPPORTED_BLOCKS}")
-    _check("band", band, (nbp, bw1, b, b), band.dtype, band.device)
-    _check("invL", invL, (nbp, b, b), band.dtype, band.device)
-    if d.numel() < nb * b or not d.is_contiguous() or d.dtype != band.dtype \
-            or d.device != band.device:
-        raise ValueError("d must be a contiguous vector of ≥ nb·b pivots "
-                         "of the band's dtype and device")
-    if rhs.ndim != 2:
-        raise ValueError("rhs must be 2-D ((nb+bw)·b, k)")
-    _check("rhs", rhs, (nbp * b, rhs.shape[1]), band.dtype, band.device)
-    fn = getattr(load(), "banded_solve_" + _SUFFIX[band.dtype])
+    k = rhs.shape[-1]
+    _check("band", band, lead + (nbp, bw1, b, b), band.dtype, band.device)
+    _check("invL", invL, lead + (nbp, b, b), band.dtype, band.device)
+    if lanes is None:
+        if d.numel() < nb * b or not d.is_contiguous() \
+                or d.dtype != band.dtype or d.device != band.device:
+            raise ValueError("d must be a contiguous vector of ≥ nb·b "
+                             "pivots of the band's dtype and device")
+    else:
+        _check("d", d, (lanes, nb * b), band.dtype, band.device)
+    _check("rhs", rhs, lead + (nbp * b, k), band.dtype, band.device)
+    return nb, b, bw, k
+
+
+_plans = {}
+
+
+def plan_for(band, rhs) -> SolvePlan:
+    """The plan K2 (``band`` 4-D) or K4 (5-D, a leading lane axis) launches
+    for this ``rhs`` (kept per shape, dtype and device: the solver asks for
+    the same few on every call)."""
+    key = (tuple(band.shape), rhs.shape[-1], band.dtype, band.device)
+    if key not in _plans:
+        lanes = band.shape[0] if band.ndim == 5 else 1
+        b, bw = band.shape[-1], band.shape[-3] - 1
+        _plans[key] = solve_plan(lanes, b, bw, rhs.shape[-1], band.dtype,
+                                 max_clusters(band.dtype, band.device))
+    return _plans[key]
+
+
+def _launch_cluster_solve(band, invL, d, rhs, mask, lanes, nb, b, bw, k):
+    plan = plan_for(band, rhs)
+    fn = getattr(load(), "banded_solve_cluster_" + _SUFFIX[band.dtype])
     with torch.cuda.device(band.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(band.data_ptr(), invL.data_ptr(), d.data_ptr(),
-                 rhs.data_ptr(), nb, b, bw, rhs.shape[1], stream)
+        return fn(band.data_ptr(), invL.data_ptr(), d.data_ptr(),
+                  rhs.data_ptr(), None if mask is None else mask.data_ptr(),
+                  lanes, nb, b, bw, k, plan.clusters, plan.rows, plan.stages,
+                  stream)
+
+
+def banded_solve_cuda(band, invL, d, rhs):
+    """K2: solve in place on ``rhs ((nb+bw)·b, k)`` (permuted, zero
+    padded) with the factor from :func:`banded_factorize_cuda`, on one
+    cluster of :func:`solve_plan`'s size; the padding rows of the result
+    are zero.  Raises ``ValueError`` for a k no plan fits."""
+    nb, b, bw, k = _check_solve("banded_solve_cuda", band, invL, d, rhs, None)
+    err = _launch_cluster_solve(band, invL, d, rhs, None, 1, nb, b, bw, k)
     banded_solve_cuda.launches += 1
     if err:
         raise RuntimeError(f"banded_solve_cuda: CUDA error {err}")
@@ -209,8 +346,13 @@ banded_solve_cuda.launches = 0
 
 def _active_mask(active, lanes: int, device) -> torch.Tensor:
     """The lane mask (numpy bool (B,)) as the kernels read it: int32 (B,)
-    on the card."""
-    mask = torch.as_tensor(np.asarray(active, dtype=np.int32), device=device)
+    on the card; a mask already in that form is taken as it is."""
+    if isinstance(active, torch.Tensor) and active.device == device \
+            and active.dtype == torch.int32:
+        mask = active
+    else:
+        mask = torch.as_tensor(np.asarray(active, dtype=np.int32),
+                               device=device)
     if tuple(mask.shape) != (lanes,):
         raise ValueError(f"active has shape {tuple(mask.shape)}, "
                          f"expected ({lanes},)")
@@ -252,30 +394,13 @@ banded_factorize_batched_cuda.launches = 0
 def banded_solve_batched_cuda(band, invL, d, rhs, active):
     """K4: K2 on every active lane of ``rhs (B, (nb+bw)·b, k)`` (permuted,
     zero padded) with the factor from :func:`banded_factorize_batched_cuda`,
-    in place; inactive lanes are left untouched."""
-    if not band.is_cuda:
-        raise ValueError("banded_solve_batched_cuda needs CUDA tensors")
-    if band.dtype not in _SUFFIX:
-        raise TypeError(f"unsupported dtype {band.dtype}")
-    if band.ndim != 5 or rhs.ndim != 3:
-        raise ValueError("band must be (B, nb+bw, bw+1, b, b) and rhs "
-                         "(B, (nb+bw)·b, k)")
-    B, nbp, bw1, b, _ = band.shape
-    bw = bw1 - 1
-    nb = nbp - bw
-    if b not in SUPPORTED_BLOCKS:
-        raise ValueError(f"block size {b} not in {SUPPORTED_BLOCKS}")
-    _check("band", band, (B, nbp, bw1, b, b), band.dtype, band.device)
-    _check("invL", invL, (B, nbp, b, b), band.dtype, band.device)
-    _check("d", d, (B, nb * b), band.dtype, band.device)
-    _check("rhs", rhs, (B, nbp * b, rhs.shape[2]), band.dtype, band.device)
+    in place, one cluster per lane; inactive lanes are left untouched.
+    ``active``: numpy bool (B,), or int32 (B,) on the card."""
+    B = band.shape[0]
+    nb, b, bw, k = _check_solve("banded_solve_batched_cuda", band, invL, d,
+                                rhs, B)
     mask = _active_mask(active, B, band.device)
-    fn = getattr(load(), "banded_solve_batched_" + _SUFFIX[band.dtype])
-    with torch.cuda.device(band.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(band.data_ptr(), invL.data_ptr(), d.data_ptr(),
-                 rhs.data_ptr(), mask.data_ptr(), B, nb, b, bw, rhs.shape[2],
-                 stream)
+    err = _launch_cluster_solve(band, invL, d, rhs, mask, B, nb, b, bw, k)
     banded_solve_batched_cuda.launches += 1
     if err:
         raise RuntimeError(f"banded_solve_batched_cuda: CUDA error {err}")
@@ -283,6 +408,32 @@ def banded_solve_batched_cuda(band, invL, d, rhs, active):
 
 
 banded_solve_batched_cuda.launches = 0
+
+
+def banded_solve_reference_cuda(band, invL, d, rhs, active=None):
+    """The reference solve that K2 and K4 replaced (one CTA of 1024
+    threads per lane runs both sweeps), kept as their card-side witness:
+    one system (``band`` 4-D, as K2 takes it) or a batch (5-D, as K4, with
+    ``active``: numpy bool (B,), or None for every lane), in place."""
+    lanes = band.shape[0] if band.ndim == 5 else None
+    nb, b, bw, k = _check_solve("banded_solve_reference_cuda", band, invL,
+                                d, rhs, lanes)
+    mask = None if active is None else _active_mask(active, lanes or 1,
+                                                   band.device)
+    fn = getattr(load(), "banded_solve_reference_" + _SUFFIX[band.dtype])
+    with torch.cuda.device(band.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(band.data_ptr(), invL.data_ptr(), d.data_ptr(),
+                 rhs.data_ptr(), None if mask is None else mask.data_ptr(),
+                 lanes or 1, nb, b, bw, k, stream)
+    banded_solve_reference_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"banded_solve_reference_cuda: CUDA error {err}")
+    return rhs
+
+
+banded_solve_reference_cuda.launches = 0
+
 
 def banded_diag_step_cuda(A, R, dout, tiled: bool = True):
     """The diagonal step of K1 and K3 alone: LDLᵀ and L⁻¹ of each
@@ -317,7 +468,7 @@ banded_diag_step_cuda.launches = 0
 
 KERNELS = (banded_factorize_cuda, banded_solve_cuda,
            banded_factorize_batched_cuda, banded_solve_batched_cuda,
-           banded_diag_step_cuda)
+           banded_diag_step_cuda, banded_solve_reference_cuda)
 
 
 def reset_counts():

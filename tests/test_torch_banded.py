@@ -112,7 +112,8 @@ def test_factorize_solve_match_xla(N, b, bw, dtype):
 
 
 @pytest.mark.parametrize("N,b,bw,dtype", [(150, 32, 2, "float64"),
-                                          (200, 32, 3, "float32")])
+                                          (200, 32, 3, "float32"),
+                                          (200, 32, 4, "float64")])
 def test_factorize_solve_match_pallas_interpret(N, b, bw, dtype):
     rows, cols, vals = _system(7 * N + bw, N, b, bw, signs=True)
     js, jband, ts, tband = _pair(rows, cols, vals, N, b, dtype)
@@ -186,18 +187,35 @@ def test_ordering_matches_jax():
 
 
 def test_cpu_tensors_take_the_plain_path():
+    """CPU tensors run the plain versions, single and batched, with no
+    launch of any kernel (the cluster solve K2 / K4 and its witness
+    included); the CUDA wrappers refuse CPU tensors."""
     rows, cols, vals = _system(2, 90, 32, 1)
     _, _, ts, tband = _pair(rows, cols, vals, 90, 32, "float64")
-    before = (tk.banded_factorize_cuda.launches, tk.banded_solve_cuda.launches)
+    before = tk.counts()
     f = tk.factorize(ts, tband)
     ref = tb.banded_factorize(ts, tband)
     assert torch.equal(f.band, ref.band) and torch.equal(f.d, ref.d)
     rhs = torch.ones(90, dtype=torch.float64)
     assert torch.equal(tk.solve(ts, f, rhs), tb.banded_solve(ts, ref, rhs))
-    assert (tk.banded_factorize_cuda.launches,
-            tk.banded_solve_cuda.launches) == before
+    bands = torch.stack([tband, 2 * tband])
+    active = np.array([True, False])
+    fb = tk.factorize_batched(ts, bands.clone(), bands.new_zeros(
+        (2, ts.nbp, 32, 32)), bands.new_ones((2, ts.nb * 32)), active)
+    assert torch.equal(fb.band[0], ref.band) and torch.equal(fb.band[1],
+                                                             bands[1])
+    rb = torch.stack([rhs, -rhs])
+    xb = tk.solve_batched(ts, fb, rb, active)
+    assert torch.equal(xb[0], tb.banded_solve(ts, ref, rhs))
+    assert torch.equal(xb[1], rb[1])
+    assert tk.counts() == before
     with pytest.raises(ValueError):
         tk.banded_factorize_cuda(tband, ref.invL, ref.d, ts.nb, 32, 1)
+    with pytest.raises(ValueError):
+        tk.banded_solve_cuda(ref.band, ref.invL, ref.d, rhs[:, None])
+    with pytest.raises(ValueError):
+        tk.banded_solve_reference_cuda(ref.band, ref.invL, ref.d,
+                                       rhs[:, None])
 
 
 @pytest.mark.parametrize("b,dtype", [(32, "float64"), (64, "float64"),

@@ -7,7 +7,10 @@ csrc/dense_ldlt.cu; small solves of the sparse, batched and dense paths
 on the card against the CPU; and the case118 bench-configuration solve
 on the card against the JAX package's numbers.  K1 and K3 run the tiled
 diagonal step, K5 the scalar one it was rewritten from: their factors, and
-the two steps alone, are held equal bit for bit.
+the two steps alone, are held equal bit for bit.  K2 and K4 run one
+thread-block cluster per system; the one-CTA solve they replaced
+(``banded_solve_reference_cuda``) is their witness, held equal bit for
+bit.
 
 Run on a machine with an NVIDIA GPU and nvcc (``--noconftest`` skips
 tests/conftest.py, which imports JAX):
@@ -365,9 +368,9 @@ def test_tiled_diagonal_step_equals_the_scalar_one(b, dtype):
 
 
 def _k2_solve(st, f, rhs):
-    """K2's solve of ``rhs``, eight columns at a time: K2 holds 2·b·k values
-    of the right-hand side in one CTA's shared memory, too many for k = 130
-    at b = 256."""
+    """K2's solve of ``rhs``, eight columns at a time: K2 holds (bw+2)·b·k
+    values of the right-hand side in each CTA's shared memory, too many for
+    k = 130 at b = 256."""
     if rhs.ndim == 1:
         return bk.solve(st, f, rhs)
     return torch.cat([bk.solve(st, f, rhs[:, i:i + 8])
@@ -433,3 +436,113 @@ def test_case118_bench_solve_on_the_card_matches_jax():
     assert abs(s.objective - obj) <= 1e-8 * abs(obj)
     assert bk.banded_factorize_cuda.launches == facts + 1
     assert not any(bf.counts().values())
+
+
+# K2 and K4 against their witness: the geometries of the flagship, the
+# case118×4 ring, a wide band, case118 and a narrow block
+SOLVE_GEOMETRIES = [(256, 2, 11), (256, 4, 10), (128, 7, 12), (64, 5, 10),
+                    (32, 2, 9)]
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(_BITS[a.dtype]),
+                                              b.view(_BITS[b.dtype]))
+
+
+def _factored_lanes(nb, b, bw, dtype, k):
+    """Three factored lanes (lane 1 with an exactly zero pivot) and a
+    seeded zero-padded right-hand side (3, (nb+bw)·b, k)."""
+    st, bands = _lanes(nb, b, bw, dtype, zero_lane=1)
+    B = bands.shape[0]
+    f = bk.factorize_batched(st, bands.clone(),
+                             bands.new_zeros((B, st.nbp, b, b)),
+                             bands.new_ones((B, nb * b)), np.ones(B, bool))
+    rng = np.random.default_rng(b + bw + nb + k)
+    rhs = plain.pad_rhs_batched(st, torch.as_tensor(
+        rng.standard_normal((B, st.N, k)), dtype=dtype, device="cuda"))
+    return st, f, rhs
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb", SOLVE_GEOMETRIES)
+def test_cluster_solve_equals_the_reference_bit_for_bit(b, bw, nb, dtype, k):
+    """K4 on three lanes (one with a zero pivot) and K2 on each lane equal
+    the one-CTA reference solve bit for bit, padding rows included."""
+    _need_cuda()
+    st, f, rhs = _factored_lanes(nb, b, bw, dtype, k)
+    every = np.ones(rhs.shape[0], bool)
+    new, ref = rhs.clone(), rhs.clone()
+    bk.banded_solve_batched_cuda(f.band, f.invL, f.d, new, every)
+    bk.banded_solve_reference_cuda(f.band, f.invL, f.d, ref, every)
+    torch.cuda.synchronize()
+    assert _same_bits(new, ref)
+    assert not new[:, st.nb * b:].any() and torch.isfinite(new).all()
+    for i in range(rhs.shape[0]):
+        x, y = rhs[i].clone(), rhs[i].clone()
+        bk.banded_solve_cuda(f.band[i], f.invL[i], f.d[i], x)
+        bk.banded_solve_reference_cuda(f.band[i], f.invL[i], f.d[i], y)
+        torch.cuda.synchronize()
+        assert _same_bits(x, y) and _same_bits(x, new[i])
+    assert _rel(new, plain.solve_padded_batched(
+        f.band, f.invL, f.d, rhs.clone(), every)) < RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_solve_leaves_inactive_lanes_untouched(dtype):
+    _need_cuda()
+    st, f, rhs = _factored_lanes(11, 256, 2, dtype, 1)
+    active = np.array([False, True, True])
+    new, ref = rhs.clone(), rhs.clone()
+    bk.banded_solve_batched_cuda(f.band, f.invL, f.d, new, active)
+    bk.banded_solve_reference_cuda(f.band, f.invL, f.d, ref, active)
+    torch.cuda.synchronize()
+    assert _same_bits(new, ref)
+    assert _same_bits(new[0], rhs[0])
+    assert not _same_bits(new[1], rhs[1])
+
+
+def test_solves_launch_the_cluster_kernel_once_per_call():
+    """solve and solve_batched: one launch of the cluster kernel per call
+    (counted by the wrapper and by torch.profiler), the witness never."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    st, f, rhs = _factored_lanes(11, 256, 2, torch.float32, 1)
+    single = plain.BandedFactor(f.band[0].contiguous(), f.invL[0].contiguous(),
+                                f.d[0].contiguous())
+    every = np.ones(rhs.shape[0], bool)
+    x1 = rhs[0, :st.N, 0].contiguous()
+    xb = rhs[:, :st.N].contiguous()
+    bk.solve(st, single, x1)          # builds, plans and warms up
+    torch.cuda.synchronize()
+    bk.reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bk.solve(st, single, x1)
+        bk.solve_batched(st, f, xb, every)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if getattr(ev, "device_type", None)
+             == torch.autograd.DeviceType.CUDA]
+    assert sum("cluster_solve_kernel" in n for n in names) == 2, names
+    assert not any("solve_reference_kernel" in n for n in names), names
+    counts = bk.counts()
+    assert counts["banded_solve_cuda"] == counts["banded_solve_batched_cuda"] == 1
+    assert counts["banded_solve_reference_cuda"] == 0
+
+
+def test_solve_wrappers_raise_where_no_plan_fits():
+    _need_cuda()
+    st, f, rhs = _factored_lanes(11, 256, 2, torch.float64, 1)
+    wide = torch.zeros((3, st.nbp * st.b, 200), dtype=torch.float64,
+                       device="cuda")
+    before = (bk.banded_solve_cuda.launches,
+              bk.banded_solve_batched_cuda.launches)
+    with pytest.raises(ValueError):
+        bk.banded_solve_cuda(f.band[0], f.invL[0], f.d[0], wide[0])
+    with pytest.raises(ValueError):
+        bk.banded_solve_batched_cuda(f.band, f.invL, f.d, wide,
+                                     np.ones(3, bool))
+    assert (bk.banded_solve_cuda.launches,
+            bk.banded_solve_batched_cuda.launches) == before
