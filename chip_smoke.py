@@ -99,23 +99,29 @@ script exits non-zero without a result):
    saddle matrix and on one with an exactly zero pivot: the factor's
    relative error on the real rows within 1e-4 (float32) and 1e-10
    (float64), the inertia equal, the zero pivot counted.
+   ``dense_witness``: K7 against its first version (``dense_ldlt_reference``,
+   its witness) bit for bit on the strict lower triangle and the diagonal,
+   at the same sizes, both dtypes, with and without the zero pivot, at
+   blocks 32, 64 and 128; and at blocks 48 and 100, which the witness does
+   not take, against the plain version within ``KERNEL_RTOL``.
 7. ``dense_solve`` — the dense-callback path: ``madnlp(opf.build(nb=600,
    seed=0))`` with default options (condensed dense KKT, blocked LDLᵀ,
-   block 128) in float64 and float32, each against the JAX package's CPU
-   results (``DENSE_REFERENCE``; float32 counts against the spread that
-   rounding alone produces, ``DENSE_FLOAT32_SPREAD``), with every
-   kernel's launch count over each solve (the dense path runs no kernel of
-   its own: the JAX package's dense LDLᵀ is XLA code, and so is the
-   port's); the float32 solve repeated, bit for bit;
-   ``TIMED_DENSE_SOLVES`` more float32 solves for the median iter/s; the
-   first ``PROFILED_DENSE_ITERS`` iterations of one more under
-   torch.profiler.
+   block 128, which is K7 on the card) in float64 and float32, each against
+   the JAX package's CPU results (``DENSE_REFERENCE``; float32 counts
+   against the spread that rounding alone produces,
+   ``DENSE_FLOAT32_SPREAD``), with every kernel's launch count over each
+   solve (K7 once per factorization and once for the least-squares start,
+   its witness and K1-K6 never); the float32 solve repeated, bit for bit;
+   ``TIMED_DENSE_SOLVES`` more float32 solves for the median iter/s; one
+   more, whole, under torch.profiler.
 8. ``dense_main_matrix`` — the last Ruiz-scaled condensed matrix of the
-   float32 solve through K7 (its op path: counts set to 0 just before, one
-   launch read just after), through the plain version and through the
-   port's ``ldlt_factorize`` on the card: their agreement and inertia, K7's
-   time by CUDA events beside its bound, the plain version's and
-   ``ldlt_factorize``'s times, the torch launches of one ``ldlt_factorize``,
+   float32 solve through K7 and its witness (their op paths: counts set to
+   0 just before, one launch each read just after; equal bit for bit),
+   through the plain version and through the port's ``ldlt_factorize`` on
+   the card: their agreement and inertia; ``dense_timing``: K7 and the
+   witness timed in turns by CUDA events in float32 and float64 beside the
+   bound, the plain version's and ``ldlt_factorize``'s times, the device
+   launches of one K7 call and of one ``ldlt_factorize`` (torch.profiler),
    and ``torch.linalg.cholesky`` of an SPD matrix of the same size as
    context (a different function: no PyTorch call computes an unpivoted
    LDLᵀ).
@@ -284,14 +290,16 @@ DENSE_REFERENCE = {
     "float32": ("SOLVE_SUCCEEDED", 25, 28, 137, 583.7230018594353),
 }
 # float32 counts are a property of the rounding, not of the algorithm: the
-# port's CPU solve with every factorized matrix perturbed by one float32 ulp
-# of seeded noise takes 25-26 iterations, 27-30 factorizations and 127-158
-# backsolves (6 runs, tests/test_torch_refine_stall.py:dense_float32_spread),
-# where refinement stalls on near-singular pivots send the δ ladder up a
-# step or not.  The float32 solve on the card is held to that spread and to
-# the JAX package's status and objective; its counts stand beside JAX's.
-DENSE_FLOAT32_SPREAD = {"iter": (25, 26), "factorization_cnt": (27, 30),
-                        "backsolve_cnt": (127, 158)}
+# solve on the card, which factors with K7, with every factorized matrix
+# perturbed by one float32 ulp of seeded noise takes 25-27 iterations,
+# 27-34 factorizations and 133-186 backsolves (12 runs,
+# tools/dense_float32_spread.py; the CPU study of the same kind,
+# tests/test_torch_refine_stall.py:dense_float32_spread, 6 runs), where
+# refinement stalls on near-singular pivots send the δ ladder up a step or
+# not.  The float32 solve on the card is held to that spread and to the JAX
+# package's status and objective; its counts stand beside JAX's.
+DENSE_FLOAT32_SPREAD = {"iter": (25, 27), "factorization_cnt": (27, 34),
+                        "backsolve_cnt": (133, 186)}
 DENSE_BLOCK = 128
 # K7 against its plain version: N = one block, a padded tail, the TPU
 # kernel's VMEM limit, and the dense nb=600 system (2674 -> 2688 padded)
@@ -301,7 +309,11 @@ DENSE_SIZES = (128, 300, 1024, 2674)
 # condition number, as on the banded path's main band
 DENSE_MAIN_RTOL = 1e-6
 TIMED_DENSE_SOLVES = 3
-PROFILED_DENSE_ITERS = 3   # iterations of the dense solve under the profiler
+# K7 against its witness (bit for bit) and, at blocks the witness does not
+# take, against the plain version
+WITNESS_BLOCKS = (32, 64, 128)
+ODD_BLOCKS = (48, 100)
+DENSE_TURN_ROUNDS = 4      # rounds of K7 and its witness in turns
 
 
 def emit(obj):
@@ -1708,23 +1720,70 @@ def phase_dense_kernels(torch):
     return worst
 
 
+def phase_dense_witness(torch):
+    """K7 against its witness, bit for bit, at ``DENSE_SIZES`` × both
+    dtypes × (no zero pivot, one) × ``WITNESS_BLOCKS``; at ``ODD_BLOCKS``
+    against the plain version.  Returns the witness's worst absolute error
+    against the plain version at the dense system's size in float32."""
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+    from madnlp_tpu_torch.ops.ldlt import ldlt_inertia
+
+    worst = 0.0
+    for N in DENSE_SIZES:
+        for dtype_name in ("float32", "float64"):
+            equal, rel = {}, {}
+            for zero_row in (None, N // 3):
+                K = _saddle(torch, N, 7 * N + 3, zero_row).to(
+                    getattr(torch, dtype_name))
+                for block in WITNESS_BLOCKS:
+                    kf = dk.dense_ldlt(K, block)
+                    rf = dk.dense_ldlt_reference(K, block)
+                    equal[f"b{block}_zero{zero_row is not None:d}"] = (
+                        _same_bits(torch, kf.L, rf.L)
+                        and _same_bits(torch, kf.d, rf.d))
+                    if (N, dtype_name, block, zero_row) == (
+                            DENSE_SIZES[-1], "float32", DENSE_BLOCK, None):
+                        pf = dk.dense_ldlt_plain(K, block)
+                        worst = max(_factor_errors(torch, rf, pf)[1].values())
+                for block in ODD_BLOCKS:
+                    kf = dk.dense_ldlt(K, block)
+                    pf = dk.dense_ldlt_plain(K, block)
+                    rel[f"b{block}_zero{zero_row is not None:d}"] = max(
+                        _factor_errors(torch, kf, pf)[0].values())
+                    if ldlt_inertia(kf) != ldlt_inertia(pf):
+                        raise AssertionError(
+                            f"K7 inertia differs from plain at "
+                            f"{(N, dtype_name, block, zero_row)}")
+            torch.cuda.synchronize()
+            tol = KERNEL_RTOL[dtype_name]
+            emit({"phase": "dense_witness", "N": N, "dtype": dtype_name,
+                  "equal_to_witness": equal, "odd_block_max_rel_err": rel,
+                  "tol": tol})
+            if not all(equal.values()):
+                raise AssertionError(f"K7 differs from its witness at "
+                                     f"{(N, dtype_name)}: {equal}")
+            if max(rel.values()) > tol:
+                raise AssertionError(f"K7 disagrees with plain at odd blocks "
+                                     f"{(N, dtype_name)}: {rel}")
+    return worst
+
+
 # -- 7. the dense-callback solve -----------------------------------------------
 
 
-def _dense_solve(torch, port, dtype, keep=None, max_iter=None):
+def _dense_solve(torch, port, dtype, keep=None):
     """``madnlp``'s path with default options on the dense nb=600 ACOPF
-    (model and set-up excluded from the wall; ``max_iter`` cuts it short).
-    ``keep`` collects the last matrix the solve factorized.  Returns
-    (stats, wall, kernel counts, resolved options)."""
+    (model and set-up excluded from the wall), every kernel's count set to
+    0 just before it.  ``keep`` collects the last matrix the solve
+    factorized.  Returns (stats, wall, kernel counts, resolved options)."""
     from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
     from madnlp_tpu_torch.ops import banded_kernels as bk
     from madnlp_tpu_torch.ops import dense_kernels as dk
     from madnlp_tpu_torch.ops import dense_solvers as ds
 
-    cut = {} if max_iter is None else {"max_iter": max_iter}
     solver = port.MadNLPSolver(opf.build(nb=600, seed=0), device="cuda",
-                               dtype=dtype, print_level=port.PrintLevel.ERROR,
-                               **cut)
+                               dtype=dtype, print_level=port.PrintLevel.ERROR)
     factorize = ds.factorize
     if keep is not None:
         def keeping(K, *args, **kwargs):
@@ -1733,6 +1792,7 @@ def _dense_solve(torch, port, dtype, keep=None, max_iter=None):
         ds.factorize = keeping
     torch.cuda.synchronize()
     bk.reset_counts()
+    bf.reset_counts()
     dk.reset_counts()
     t = time.perf_counter()
     try:
@@ -1741,7 +1801,8 @@ def _dense_solve(torch, port, dtype, keep=None, max_iter=None):
     finally:
         ds.factorize = factorize
     wall = time.perf_counter() - t
-    return stats, wall, {**bk.counts(), **dk.counts()}, solver.opts
+    return stats, wall, {**bk.counts(), **bf.counts(), **dk.counts()}, \
+        solver.opts
 
 
 def _check_dense(stats, dtype, counts, opts):
@@ -1770,17 +1831,22 @@ def _check_dense(stats, dtype, counts, opts):
             != ("DENSE_CONDENSED", "LDL", DENSE_BLOCK):
         raise AssertionError(f"dense {dtype}: preset {opts.kkt_system}, "
                              f"{opts.linear_solver}, {opts.ldl_block_size}")
-    # the path factors with ldlt_factorize (XLA code in the JAX package),
-    # so no kernel of the port runs on it
-    if any(counts.values()):
-        raise AssertionError(f"dense {dtype}: kernels launched: {counts}")
+    # the path factors with K7: once per counted factorization and once for
+    # the least-squares dual initialization (not counted, as in the JAX
+    # package); K7's witness and K1-K6 never
+    others = {k: v for k, v in counts.items() if k != "dense_ldlt_cuda"}
+    if counts["dense_ldlt_cuda"] != c["factorization_cnt"] + 1 \
+            or any(others.values()):
+        raise AssertionError(f"dense {dtype}: kernels launched: {counts}, "
+                             f"{c['factorization_cnt']} factorizations")
 
 
 def phase_dense_solve(torch, port):
-    out = {}
+    out, out_counts = {}, {}
     for dtype in ("float64", "float32"):
         stats, wall, counts, opts = _dense_solve(torch, port, dtype)
         _check_dense(stats, dtype, counts, opts)
+        out_counts[dtype] = counts
         emit({"phase": "dense_solve", "dtype": dtype,
               "status": stats.status.name, "iter": stats.iter,
               "objective": stats.objective,
@@ -1816,13 +1882,11 @@ def phase_dense_solve(torch, port):
           "iter_per_s_min": first.iter / max(walls),
           "iter_per_s_max": first.iter / min(walls)})
 
-    # a short steady window: the dense solve launches some 20,000 small
-    # kernels per factorization, too many events to trace a whole solve
+    # the whole solve: with K7 a factorization is some 90 launches
     window = {}
 
     def profiled():
-        stats, wall, _, _ = _dense_solve(torch, port, "float32",
-                                         max_iter=PROFILED_DENSE_ITERS)
+        stats, wall, _, _ = _dense_solve(torch, port, "float32")
         window["factorizations"] = stats.counters["factorization_cnt"]
         return stats.iter, wall
     prof = _profile(torch, port, profiled)
@@ -1831,7 +1895,8 @@ def phase_dense_solve(torch, port):
         prof["device_launches"] / (window["factorizations"] + 1))
     emit(dict(phase="dense_profile", dtype="float32",
               factorizations=window["factorizations"], **prof))
-    return {"iter_per_s_median": first.iter / med, "K": kept["K"]}
+    return {"iter_per_s_median": first.iter / med, "K": kept["K"],
+            "launches": out_counts["float32"]["dense_ldlt_cuda"]}
 
 
 # -- 8. K7 on the dense solve's own matrix --------------------------------------
@@ -1869,20 +1934,30 @@ def phase_dense_main_matrix(torch, K32):
     )
 
     n = K32.shape[0]
-    # K7's op path: counts from 0 just before, read just after
+    # K7's and its witness's op paths: counts from 0 just before, read just
+    # after
     dk.reset_counts()
     kf32 = dk.dense_ldlt(K32, DENSE_BLOCK)
     torch.cuda.synchronize()
-    launches = dk.dense_ldlt_cuda.launches
-    if launches != 1:
-        raise AssertionError(f"K7 launched {launches} times on its op path")
+    launches = dk.counts()
+    rf32 = dk.dense_ldlt_reference(K32, DENSE_BLOCK)
+    torch.cuda.synchronize()
+    witness_launches = dk.dense_ldlt_reference_cuda.launches
+    if launches != {"dense_ldlt_cuda": 1, "dense_ldlt_reference_cuda": 0} \
+            or witness_launches != 1:
+        raise AssertionError(f"K7 / witness launches on their op paths: "
+                             f"{launches}, {witness_launches}")
     pf32 = dk.dense_ldlt_plain(K32, DENSE_BLOCK)
     lf32 = ldlt_factorize(K32, DENSE_BLOCK)
     K64 = K32.double()
-    kf, pf, lf = (dk.dense_ldlt(K64, DENSE_BLOCK),
-                  dk.dense_ldlt_plain(K64, DENSE_BLOCK),
-                  ldlt_factorize(K64, DENSE_BLOCK))
+    kf, rf, pf, lf = (dk.dense_ldlt(K64, DENSE_BLOCK),
+                      dk.dense_ldlt_reference(K64, DENSE_BLOCK),
+                      dk.dense_ldlt_plain(K64, DENSE_BLOCK),
+                      ldlt_factorize(K64, DENSE_BLOCK))
     torch.cuda.synchronize()
+    same = {dt: _same_bits(torch, a.L, b.L) and _same_bits(torch, a.d, b.d)
+            for dt, (a, b) in (("float32", (kf32, rf32)),
+                               ("float64", (kf, rf)))}
     rel64 = {"K7_vs_plain": _factor_errors(torch, kf, pf)[0],
              "ldlt_factorize_vs_plain": _factor_errors(torch, lf, pf)[0]}
     rel32 = {"K7_vs_plain": _factor_errors(torch, kf32, pf32)[0],
@@ -1890,36 +1965,55 @@ def phase_dense_main_matrix(torch, K32):
     inertia = {"float32": [ldlt_inertia(f) for f in (kf32, pf32, lf32)],
                "float64": [ldlt_inertia(f) for f in (kf, pf, lf)]}
     emit({"phase": "dense_main_matrix", "N": n, "block": DENSE_BLOCK,
+          "K7_equal_to_witness": same,
           "float64_max_rel_err": rel64, "float64_tol": DENSE_MAIN_RTOL,
           "float32_max_rel_err (reported)": rel32,
           "inertia (K7, plain, ldlt_factorize)": inertia})
+    if not all(same.values()):
+        raise AssertionError(f"K7 differs from its witness on the dense main "
+                             f"matrix: {same}")
     if max(max(v.values()) for v in rel64.values()) > DENSE_MAIN_RTOL:
         raise AssertionError("K7, plain and ldlt_factorize disagree on the "
                              "dense main matrix")
     if len(set(inertia["float64"])) != 1 or len(set(inertia["float32"])) != 1:
         raise AssertionError(f"inertia differs on the dense main matrix: {inertia}")
 
-    padded = pad_identity(K32, DENSE_BLOCK).contiguous()
-    work = torch.empty_like(padded)
     rng = np.random.default_rng(5)
     R = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
     spd = (R @ R.T + n * torch.eye(n, dtype=torch.float64, device="cuda")).float()
-    times = {
-        "K7": _time_events(torch, lambda: dk.dense_ldlt_cuda(work, DENSE_BLOCK),
-                           lambda: work.copy_(padded), 10),
-        "K7_plain": _time_events(torch, lambda: dk.dense_ldlt_plain(K32, DENSE_BLOCK),
-                                 lambda: None, 3),
-        "ldlt_factorize": _time_events(torch, lambda: ldlt_factorize(K32, DENSE_BLOCK),
-                                       lambda: None, 3),
-        "cholesky_spd_context": _time_events(
-            torch, lambda: torch.linalg.cholesky(spd), lambda: None, 10),
-    }
-    bound = _dense_bound(padded.shape[0], K32.element_size(), "float32")
-    ldlt_launches = _count_launches(torch, lambda: ldlt_factorize(K32, DENSE_BLOCK))
-    emit({"phase": "dense_timing", "dtype": "float32", "N": n,
-          "Np": padded.shape[0], "ms": times, "bound": bound,
-          "ldlt_factorize_device_launches": ldlt_launches})
-    return {"launches": launches, "times": times, "bound": bound}
+    times, bounds = {}, {}
+    for dtype_name, K in (("float32", K32), ("float64", K64)):
+        padded = pad_identity(K, DENSE_BLOCK).contiguous()
+        work = torch.empty_like(padded)
+        # K7 and its witness in turns, launches queued behind a spin kernel
+        turns = _time_turns(
+            torch, {"K7": lambda: dk.dense_ldlt_cuda(work, DENSE_BLOCK),
+                    "K7_witness": lambda: dk.dense_ldlt_reference_cuda(
+                        work, DENSE_BLOCK)},
+            lambda: work.copy_(padded), DENSE_TURN_ROUNDS)
+        t = {k: v for k, v in turns.items()}
+        t["K7_plain"] = _time_events(
+            torch, lambda: dk.dense_ldlt_plain(K, DENSE_BLOCK), lambda: None, 3)
+        t["ldlt_factorize"] = _time_events(
+            torch, lambda: ldlt_factorize(K, DENSE_BLOCK), lambda: None, 3)
+        if dtype_name == "float32":
+            t["cholesky_spd_context"] = _time_events(
+                torch, lambda: torch.linalg.cholesky(spd), lambda: None, 10)
+        times[dtype_name] = t
+        bounds[dtype_name] = _dense_bound(padded.shape[0], K.element_size(),
+                                          dtype_name)
+    device_launches = {
+        "dense_ldlt": _count_launches(torch, lambda: dk.dense_ldlt(K32, DENSE_BLOCK)),
+        "ldlt_factorize": _count_launches(
+            torch, lambda: ldlt_factorize(K32, DENSE_BLOCK))}
+    emit({"phase": "dense_timing", "N": n, "Np": pad_identity(
+        K32, DENSE_BLOCK).shape[0], "block": DENSE_BLOCK, "ms": times,
+          "bound": bounds, "device_launches_per_call": device_launches,
+          "K7_witness_over_K7": {dt: times[dt]["K7_witness"] / times[dt]["K7"]
+                                 for dt in times}})
+    return {"launches": launches["dense_ldlt_cuda"],
+            "witness_launches": witness_launches, "times": times,
+            "bounds": bounds}
 
 
 # -- main ----------------------------------------------------------------------
@@ -1943,6 +2037,7 @@ def main():
     phase_matpower_solve(torch, port)
     band118 = phase_case118_band(torch, port)
     worst["K7"] = phase_dense_kernels(torch)
+    worst["K7_witness"] = phase_dense_witness(torch)
     dense = phase_dense_solve(torch, port)
     main_matrix = phase_dense_main_matrix(torch, dense["K"])
 
@@ -1997,18 +2092,29 @@ def main():
             "bound_by": path["bounds"][key]["bound_by"],
             "library_ms": None,
         })
+    t32, b32 = main_matrix["times"]["float32"], main_matrix["bounds"]["float32"]
     kernels.append({
         "name": "dense_ldlt_cuda", "route": "cuda",
         "source": "madnlp_tpu_torch/csrc/dense_ldlt.cu",
         "replaces": "madnlp_tpu/ops/pallas_ldlt.py:132",
-        # K7 is an op of its own: the solve path factors with
-        # ldlt_factorize (0 launches there); this is its op path's count
-        "launches": main_matrix["launches"],
+        # the dense float32 solve's launches (one per factorization and one
+        # for the least-squares start)
+        "launches": dense["launches"],
         "max_abs_err": worst["K7"],
-        "ms": main_matrix["times"]["K7"],
-        "plain_ms": main_matrix["times"]["K7_plain"],
-        "bound_ms": main_matrix["bound"]["bound_ms"],
-        "bound_by": main_matrix["bound"]["bound_by"],
+        "ms": t32["K7"], "plain_ms": t32["K7_plain"],
+        "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+        "library_ms": None,
+    })
+    # K7's witness (its first version): 0 launches on every solve path
+    # (asserted); this is its op path's count on the dense main matrix
+    kernels.append({
+        "name": "dense_ldlt_reference_cuda (K7 witness)", "route": "cuda",
+        "source": "madnlp_tpu_torch/csrc/dense_ldlt.cu",
+        "replaces": "madnlp_tpu/ops/pallas_ldlt.py:132",
+        "launches": main_matrix["witness_launches"],
+        "max_abs_err": worst["K7_witness"],
+        "ms": t32["K7_witness"], "plain_ms": t32["K7_plain"],
+        "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
         "library_ms": None,
     })
     print(smi, flush=True)

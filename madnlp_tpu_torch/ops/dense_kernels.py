@@ -5,18 +5,21 @@ pallas_ldlt`` (body ``_ldlt_kernel``): the blocked, right-looking,
 unpivoted LDLᵀ of a whole symmetric matrix, in place.  It is CUDA C++ for
 ``sm_90a`` in ``csrc/dense_ldlt.cu``, compiled by ``nvcc`` into
 ``build/kernels/`` at first use and loaded with ``ctypes``; nothing is
-built or imported until a CUDA tensor arrives.
+built or imported until a CUDA tensor arrives.  It takes every block size
+1 ≤ b ≤ ``MAX_BLOCK`` = 128: one CTA holds the diagonal block.
 
-:func:`dense_ldlt` is the public function: for a tensor on the card it
-launches K7 (or raises), for a tensor on the CPU it runs
-:func:`dense_ldlt_plain`, which follows ``pallas_ldlt``'s algorithm step
-by step (rank-1 diagonal block, L_kk⁻¹ by forward substitution, panel,
-trailing update) and returns what ``pallas_ldlt`` returns.
+:func:`dense_ldlt` is the public function and the dense path's LDLᵀ
+(``ops/dense_solvers.py:factorize`` with ``LinearSolver.LDL``): for a
+tensor on the card it launches K7 (or raises), for a tensor on the CPU it
+runs :func:`dense_ldlt_plain`, which follows ``pallas_ldlt``'s algorithm
+step by step (rank-1 diagonal block, L_kk⁻¹ by forward substitution,
+panel, trailing update) and returns what ``pallas_ldlt`` returns.  It is
+the same function by the same recursion as the JAX package's XLA code
+(:func:`..ldlt.ldlt_factorize`), which forms L_kk⁻¹ by a triangular solve.
 
-As in the JAX package, the solver's dense path factors with
-:func:`..ldlt.ldlt_factorize` (the counterpart of its XLA code), not with
-this kernel: the same function by the same recursion, with L_kk⁻¹ from a
-triangular solve.
+:func:`dense_ldlt_reference_cuda` launches the first version of K7, kept
+as the card-side witness of the redesigned kernel (equal bit for bit at
+the blocks it takes, 32, 64 and 128); no solve path reaches it.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ from .ldlt import LDLFactor, ldlt_unblocked, pad_identity, pivot_div
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "dense_ldlt.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libdense_ldlt.so")
-# the diagonal block and the pivot vector live in one CTA's shared memory:
-# b·(b+1) elements, 132 KB in float64 at b = 128
-SUPPORTED_BLOCKS = (32, 64, 128)
+# K7 holds the diagonal block in one CTA (in registers, and in shared memory
+# for the inverse: 132 KB in float64 at b = 128)
+MAX_BLOCK = 128
+# the witness keeps the blocks of the first version
+REFERENCE_BLOCKS = (32, 64, 128)
 
 _lib = None
 
@@ -51,7 +56,8 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name in ("dense_ldlt_f32", "dense_ldlt_f64"):
+        for name in ("dense_ldlt_f32", "dense_ldlt_f64",
+                     "dense_ldlt_reference_f32", "dense_ldlt_reference_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, ci, ci, vp]
             fn.restype = ci
@@ -59,14 +65,16 @@ def load():
     return _lib
 
 
-def dense_ldlt_cuda(out: torch.Tensor, block: int) -> torch.Tensor:
-    """K7: factor the symmetric ``out (Np, Np)`` (Np a multiple of
-    ``block``, lower triangle read) in place: its strict lower triangle
-    becomes L and its diagonal D.  float32 or float64."""
-    if block not in SUPPORTED_BLOCKS:
-        raise ValueError(f"block size {block} not in {SUPPORTED_BLOCKS}")
+def check_block(block: int):
+    """K7's limit on the block size, checked before anything else."""
+    if not 1 <= block <= MAX_BLOCK:
+        raise ValueError(f"block size {block} outside 1..{MAX_BLOCK}: on the "
+                         f"card one CTA holds the diagonal block")
+
+
+def _check(name: str, out: torch.Tensor, block: int):
     if not out.is_cuda:
-        raise ValueError("dense_ldlt_cuda needs a CUDA tensor")
+        raise ValueError(f"{name} needs a CUDA tensor")
     if out.dtype not in _SUFFIX:
         raise TypeError(f"unsupported dtype {out.dtype}")
     if out.ndim != 2 or out.shape[0] != out.shape[1] or out.shape[0] % block:
@@ -74,15 +82,28 @@ def dense_ldlt_cuda(out: torch.Tensor, block: int) -> torch.Tensor:
                          f"of {block}, got {tuple(out.shape)}")
     if not out.is_contiguous():
         raise ValueError("out must be contiguous")
+
+
+def _launch(name: str, out: torch.Tensor, block: int, xbufs: int):
     np_ = out.shape[0]
-    rinv = torch.empty((block, block), dtype=out.dtype, device=out.device)
-    xbuf = torch.empty((max(np_ - block, 1), block), dtype=out.dtype,
+    rt = torch.empty((block, block), dtype=out.dtype, device=out.device)
+    xbuf = torch.empty((xbufs, max(np_ - block, 1), block), dtype=out.dtype,
                        device=out.device)
-    fn = getattr(load(), "dense_ldlt_" + _SUFFIX[out.dtype])
+    fn = getattr(load(), name + "_" + _SUFFIX[out.dtype])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(out.data_ptr(), rinv.data_ptr(), xbuf.data_ptr(), np_, block,
-                 stream)
+        return fn(out.data_ptr(), rt.data_ptr(), xbuf.data_ptr(), np_, block,
+                  stream)
+
+
+def dense_ldlt_cuda(out: torch.Tensor, block: int) -> torch.Tensor:
+    """K7: factor the symmetric ``out (Np, Np)`` (Np a multiple of
+    ``block``, 1 ≤ block ≤ 128, lower triangle read) in place: its strict
+    lower triangle becomes L and its diagonal D.  float32 or float64."""
+    check_block(block)
+    _check("dense_ldlt_cuda", out, block)
+    # X of the even and the odd block columns (the look-ahead)
+    err = _launch("dense_ldlt", out, block, 2)
     dense_ldlt_cuda.launches += 1
     if err:
         raise RuntimeError(f"dense_ldlt_cuda: CUDA error {err}")
@@ -91,7 +112,25 @@ def dense_ldlt_cuda(out: torch.Tensor, block: int) -> torch.Tensor:
 
 dense_ldlt_cuda.launches = 0
 
-KERNELS = (dense_ldlt_cuda,)
+
+def dense_ldlt_reference_cuda(out: torch.Tensor, block: int) -> torch.Tensor:
+    """The witness: the first version of K7 (one stream, four launches per
+    block column), which the redesigned :func:`dense_ldlt_cuda` equals bit
+    for bit on the strict lower triangle and the diagonal.  Blocks 32, 64
+    and 128."""
+    if block not in REFERENCE_BLOCKS:
+        raise ValueError(f"block size {block} not in {REFERENCE_BLOCKS}")
+    _check("dense_ldlt_reference_cuda", out, block)
+    err = _launch("dense_ldlt_reference", out, block, 1)
+    dense_ldlt_reference_cuda.launches += 1
+    if err:
+        raise RuntimeError(f"dense_ldlt_reference_cuda: CUDA error {err}")
+    return out
+
+
+dense_ldlt_reference_cuda.launches = 0
+
+KERNELS = (dense_ldlt_cuda, dense_ldlt_reference_cuda)
 
 
 def reset_counts():
@@ -139,7 +178,12 @@ def dense_ldlt_plain(A: torch.Tensor, block: int = 128) -> LDLFactor:
         out[:kb, kb:s] = 0.0
         out[s:, kb:s] = Lcol
         out[kb:s, kb:s] = torch.tril(Lkk, -1) + torch.diag(dk)
-    L = torch.tril(out, -1) + torch.eye(np_, dtype=A.dtype, device=A.device)
+    return _factor_of(out, n)
+
+
+def _factor_of(out: torch.Tensor, n: int) -> LDLFactor:
+    np_ = out.shape[0]
+    L = torch.tril(out, -1) + torch.eye(np_, dtype=out.dtype, device=out.device)
     return LDLFactor(L=L, d=torch.diagonal(out).clone(), n=n)
 
 
@@ -147,14 +191,18 @@ def dense_ldlt(A: torch.Tensor, block: int = 128) -> LDLFactor:
     """Whole-matrix blocked LDLᵀ of the symmetric ``A (N, N)`` — the
     counterpart of ``madnlp_tpu/ops/pallas_ldlt.py:pallas_ldlt``, for any N
     (the TPU kernel's VMEM budget ``MAX_VMEM_N`` does not apply).  A CUDA
-    tensor runs K7, a CPU tensor :func:`dense_ldlt_plain`."""
+    tensor runs K7 (block ≤ 128, else ``ValueError``), a CPU tensor
+    :func:`dense_ldlt_plain` (any block)."""
     if A.device.type == "cpu":
         return dense_ldlt_plain(A, block)
     if not A.is_cuda:
         raise NotImplementedError(f"no dense LDLᵀ backend for {A.device}")
-    n = A.shape[0]
+    check_block(block)
     out = pad_identity(A, block).clone().contiguous()
-    dense_ldlt_cuda(out, block)
-    np_ = out.shape[0]
-    L = torch.tril(out, -1) + torch.eye(np_, dtype=A.dtype, device=A.device)
-    return LDLFactor(L=L, d=torch.diagonal(out).clone(), n=n)
+    return _factor_of(dense_ldlt_cuda(out, block), A.shape[0])
+
+
+def dense_ldlt_reference(A: torch.Tensor, block: int = 128) -> LDLFactor:
+    """:func:`dense_ldlt` through the witness (CUDA tensors only)."""
+    out = pad_identity(A, block).clone().contiguous()
+    return _factor_of(dense_ldlt_reference_cuda(out, block), A.shape[0])

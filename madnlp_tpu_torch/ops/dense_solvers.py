@@ -4,7 +4,9 @@ port of ``madnlp_tpu/ops/dense_solvers.py`` (``DenseFactor``,
 
 Backends (reference: src/LinearSolvers/lapack_common.jl:47-109):
 
-* ``LDL``       — blocked unpivoted LDLᵀ (:mod:`.ldlt`); inertia from pivots.
+* ``LDL``       — blocked unpivoted LDLᵀ (:func:`.dense_kernels.dense_ldlt`:
+                  the kernel K7 on the card, its plain version on the CPU);
+                  inertia from pivots.
 * ``CHOLESKY``  — ``torch.linalg.cholesky_ex``; inertia = success ? (n,0,0)
                   : (0,n,0), from its ``info`` (lapack_common.jl:100-102);
                   a failed factor is NaN, as XLA's is.
@@ -25,6 +27,7 @@ from typing import Tuple
 import torch
 
 from ..utils.options import LinearSolver
+from . import dense_kernels as _dense_kernels
 from . import ldlt as _ldlt
 
 
@@ -58,7 +61,7 @@ def factorize(K: torch.Tensor, solver: LinearSolver, block: int = 64,
     if solver in (LinearSolver.BLOCK_CHOLESKY, LinearSolver.HYKKT):
         raise _later(f"linear_solver={solver}")
     if solver == LinearSolver.LDL:
-        f = _ldlt.ldlt_factorize(K, block=block)
+        f = _dense_kernels.dense_ldlt(K, block=block)
         if inv:
             return DenseFactor("ldl_inv", _tri_inverse(f.L, unit=True), f.d, n)
         return DenseFactor("ldl", f.L, f.d, n)

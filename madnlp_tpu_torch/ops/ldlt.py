@@ -2,22 +2,23 @@
 ``madnlp_tpu/ops/ldlt.py`` (``LDLFactor``, ``ldlt_factorize``,
 ``ldlt_solve``, ``ldlt_inertia``).
 
-Right-looking, blocked, unpivoted: the IPM calls it inside its
-inertia-correction ladder, which re-regularizes and refactors whenever the
-factor is inaccurate or the inertia wrong, so no pivoting is needed.  A
-pivot with ``|d| <= ZERO_PIVOT_TOL`` divides as inf (its column of L
-vanishes) and counts as zero in the inertia; non-finite pivots count as
-zero too.
+Right-looking, blocked, unpivoted: the IPM's inertia-correction ladder
+re-regularizes and refactors whenever the factor is inaccurate or the
+inertia wrong, so no pivoting is needed.  A pivot with
+``|d| <= ZERO_PIVOT_TOL`` divides as inf (its column of L vanishes) and
+counts as zero in the inertia; non-finite pivots count as zero too.
 
-This is the counterpart of the JAX package's XLA code, not of a TPU
-kernel: plain torch on every device, with the trailing update as one
+``ldlt_factorize`` is the counterpart of the JAX package's XLA code, not of
+a TPU kernel: plain torch on every device, with the trailing update as one
 ``torch.matmul`` per block column.  The JAX package updates the trailing
 matrix with a full-width GEMM whose rows and columns above the current
 block are masked to zero; those entries are never read again (every later
 step masks them out before use), so the port updates only the trailing
 block ``[below, below]`` and the result is the same on every entry that is
-read.  The whole-matrix TPU kernel of the same algorithm (K7,
-``madnlp_tpu/ops/pallas_ldlt.py``) is ported as :mod:`.dense_kernels`.
+read.  The port's dense path factors with the whole-matrix kernel of the
+same recursion instead (K7, ``madnlp_tpu/ops/pallas_ldlt.py``, ported as
+:func:`.dense_kernels.dense_ldlt`); ``ldlt_factorize`` stays as the
+reference it is held against.
 """
 
 from __future__ import annotations

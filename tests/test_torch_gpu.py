@@ -3,7 +3,9 @@ the card: K1/K2 (one system) and K3/K4 (a batch of lanes under an active
 mask, also held against K1/K2 on each lane) of csrc/banded_ldlt.cu, K5/K6
 (the whole-band factorize in one launch and the column-tiled solve) of
 csrc/banded_fused.cu, and K7, the whole-matrix dense LDLᵀ of
-csrc/dense_ldlt.cu; small solves of the sparse, batched and dense paths
+csrc/dense_ldlt.cu (held bit for bit against its first version, the witness,
+and at blocks the witness does not take against the plain version); small
+solves of the sparse, batched and dense paths
 on the card against the CPU; and the case118 bench-configuration solve
 on the card against the JAX package's numbers.  K1 and K3 run the tiled
 diagonal step, K5 the scalar one it was rewritten from: their factors, and
@@ -254,6 +256,48 @@ def test_dense_ldlt_kernel_matches_plain(N, block, zero_row, dtype):
     assert ldlt_inertia(kf) == ldlt_inertia(pf) == expect
 
 
+# K7 against its witness (its first version): N, block, zero pivot
+WITNESS_CASES = [(128, 128, None), (300, 128, 70), (1000, 128, 500),
+                 (700, 64, None), (700, 64, 350), (97, 32, 40), (256, 32, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,block,zero_row", WITNESS_CASES)
+def test_dense_ldlt_equals_the_witness_bit_for_bit(N, block, zero_row, dtype):
+    """The redesigned K7 and its first version give the same bits on the strict
+    lower triangle and the diagonal, zero pivots included."""
+    _need_cuda()
+    K = _saddle(N, 3 * N + block, dtype, zero_row)
+    dk.reset_counts()
+    kf = dk.dense_ldlt(K, block)
+    rf = dk.dense_ldlt_reference(K, block)
+    torch.cuda.synchronize()
+    assert dk.counts() == {"dense_ldlt_cuda": 1, "dense_ldlt_reference_cuda": 1}
+    assert _same_bits(kf.L, rf.L)
+    assert _same_bits(kf.d, rf.d)
+    if zero_row is not None:
+        assert int((kf.d[:N] == 0).sum()) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,block,zero_row", [(300, 48, None), (300, 100, 70),
+                                              (50, 1, None), (130, 7, 20),
+                                              (129, 128, None)])
+def test_dense_ldlt_any_block_matches_plain(N, block, zero_row, dtype):
+    """Blocks the witness does not take, against the plain version."""
+    _need_cuda()
+    K = _saddle(N, N + block, dtype, zero_row)
+    kf = dk.dense_ldlt(K, block)
+    pf = dk.dense_ldlt_plain(K, block)
+    torch.cuda.synchronize()
+    assert _rel(torch.tril(kf.L[:N, :N], -1), torch.tril(pf.L[:N, :N], -1)) \
+        < RTOL[dtype]
+    assert _rel(kf.d[:N], pf.d[:N]) < RTOL[dtype]
+    m = N // 4
+    expect = (N - m, 0, m) if zero_row is None else (N - m - 1, 1, m)
+    assert ldlt_inertia(kf) == ldlt_inertia(pf) == expect
+
+
 def test_dense_ldlt_wrapper_checks_its_inputs():
     _need_cuda()
     K = _saddle(256, 1, torch.float64)
@@ -265,6 +309,12 @@ def test_dense_ldlt_wrapper_checks_its_inputs():
         dk.dense_ldlt_cuda(K.T[::2, ::2], 128)
     with pytest.raises(ValueError):
         dk.dense_ldlt_cuda(K, 256)
+    with pytest.raises(ValueError, match="1..128"):
+        dk.dense_ldlt(K, 129)
+    with pytest.raises(ValueError):
+        dk.dense_ldlt_cuda(K, 0)
+    with pytest.raises(ValueError):
+        dk.dense_ldlt_reference_cuda(K, 48)
     with pytest.raises(ValueError):
         dk.dense_ldlt_cuda(K.cpu(), 128)
 
@@ -275,14 +325,19 @@ def test_dense_solve_on_the_card_matches_the_cpu(dtype):
     opts = dict(dtype=dtype, print_level=T.PrintLevel.ERROR)
     cpu = T.madnlp(opf.build(nb=30, seed=1), device="cpu", **opts)
     bk.reset_counts()
+    bf.reset_counts()
     dk.reset_counts()
     gpu = T.madnlp(opf.build(nb=30, seed=1), **opts)
     assert gpu.status == cpu.status == T.Status.SOLVE_SUCCEEDED
     assert gpu.iter == cpu.iter
     assert gpu.counters["factorization_cnt"] == cpu.counters["factorization_cnt"]
     assert abs(gpu.objective - cpu.objective) <= 1e-8 * abs(cpu.objective)
-    # the dense path factors with ldlt_factorize, not with a kernel
-    assert not any({**bk.counts(), **dk.counts()}.values())
+    # the dense path factors with K7: once per factorization, plus the
+    # least-squares dual initialization's, which is not counted; K1-K6 and
+    # K7's witness never
+    counts = {**bk.counts(), **bf.counts(), **dk.counts()}
+    assert counts.pop("dense_ldlt_cuda") == gpu.counters["factorization_cnt"] + 1
+    assert not any(counts.values()), counts
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
