@@ -23,14 +23,18 @@ script exits non-zero without a result):
    K3 factor must equal K1's bit for bit; one case per dtype runs with lane 0
    inactive, whose band, invL, pivots and right-hand side must come back
    bit for bit.
-   ``fused_kernels``: the whole-band kernels K5 (factorize, one launch)
-   and K6 (solve) against their plain versions and against K1 / K2 on the
-   same bands, float32 and float64, at the four geometries and case118's
-   (64, 5, 10), on a dominant band and one with a zero pivot, k = 1, 8 and
-   130 right-hand sides; K5 keeps the scalar diagonal step and K1 runs the
-   tiled one, so their factors (band, invL, d on the real columns) must be
-   equal bit for bit; then the CUDA launches of one K5 call counted by
-   torch.profiler (one) beside one K1 call's (4·nb).
+   ``fused_kernels``: the whole-band kernels K5 (factorize, one launch
+   over one thread-block cluster) and K6 (solve, one launch, a cluster per
+   tile of right-hand-side columns) against their witnesses (the one-CTA
+   kernels they replaced) bit for bit, overhang included,
+   against their plain versions and against K1 / K2 on the same bands,
+   float32 and float64, at the four geometries and case118's (64, 5, 10),
+   on a dominant band and one with a zero pivot, k = 1, 8 and 130
+   right-hand sides; K5's factor (band, invL, d on the real columns) must
+   also equal K1's bit for bit; each line names the launch plans (cluster
+   size, resident or streamed); then the CUDA launches of one K5 call and
+   of one K6 call counted by torch.profiler (one each) beside one K1
+   call's (4·nb).
    ``solve_witness``: K2 and K4 (one thread-block cluster per system)
    against the one-CTA solve they replaced (``banded_solve_reference_cuda``,
    their witness), bit for bit, at ``SOLVE_GEOMETRIES`` in float32 and
@@ -89,10 +93,11 @@ script exits non-zero without a result):
    torch.profiler.
    ``case118_band``: a float32 case118 solve (held to the JAX package) whose
    last KKT band goes through K5 / K6 (their op path: counts set to 0 just
-   before, one launch each read just after), their plain versions and K1 /
-   K2: agreement in float64 within ``REAL_BAND_RTOL``, inertia equal, and
-   each timed by CUDA events beside its bound (K2 in turns with its
-   witness).
+   before, one launch each read just after), their witnesses (bit for bit,
+   in float32 and float64), their plain versions and K1 / K2: agreement in
+   float64 within ``REAL_BAND_RTOL``, inertia equal; K5, its witness and K1
+   timed in turns, and K6, its witness, K2 and K2's witness in turns, by
+   CUDA events beside their bounds, with the launch plans.
 6. ``dense_kernels`` — the whole-matrix dense LDLᵀ kernel K7 against its
    plain PyTorch version on the card, float32 and float64, block 128, at
    N = 128, 300, 1024 and 2674 (the dense nb=600 system), on an indefinite
@@ -586,20 +591,31 @@ def phase_kernels(torch):
 
 
 def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
-    """K5 and K6 against their plain versions, and against K1 and K2 (the
-    same function), on one band on the card; K6 and K2 at each right-hand
-    side width in ``widths``.  Returns the errors over the real block
-    columns and the three inertias."""
+    """K5 and K6 against their witnesses (the kernels they replaced, bit
+    for bit, overhang included), against their plain versions, and against
+    K1 and K2 (the same function), on one band on the card; K6, its witness and
+    K2 at each right-hand side width in ``widths``.  Returns the errors
+    over the real block columns, the bit-for-bit verdicts and the three
+    inertias."""
     from madnlp_tpu_torch.ops import banded as plain
     from madnlp_tpu_torch.ops import banded_fused_kernels as bf
     from madnlp_tpu_torch.ops import banded_kernels as bk
 
-    nb = struct.nb
+    nb, b, bw = struct.nb, struct.b, struct.bw
     ff = bf.banded_fused_factorize(struct, band.clone())
     pf = bf.banded_fused_factorize_plain(struct, band)
     kf = bk.factorize(struct, band.clone())
+    wb = band.clone()
+    winvL = torch.zeros_like(ff.invL)
+    wd = torch.ones((struct.nbp * b,), dtype=band.dtype, device=band.device)
+    bf.banded_fused_factorize_reference_cuda(wb, winvL, wd, nb, b, bw)
+    witness = {"K5": all(_same_bits(torch, x, y) for x, y in (
+        (ff.band, wb), (ff.invL, winvL), (ff.d, wd[: nb * b])))}
     pairs = {"band": (ff.band[:nb], pf.band[:nb]),
              "invL": (ff.invL[:nb], pf.invL[:nb]), "d": (ff.d, pf.d)}
+    witness_abs = {"band": _abs(wb[:nb], pf.band[:nb]),
+                   "invL": _abs(winvL[:nb], pf.invL[:nb]),
+                   "d": _abs(wd[: nb * b], pf.d)}
     vs_k1_k2 = {"band": (ff.band[:nb], kf.band[:nb]),
                 "invL": (ff.invL[:nb], kf.invL[:nb]), "d": (ff.d, kf.d)}
     rng = np.random.default_rng(nb * struct.b + struct.bw)
@@ -608,7 +624,19 @@ def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
             rng.standard_normal(struct.N if k == 1 else (struct.N, k)),
             dtype=band.dtype, device=band.device)
         fx = bf.banded_fused_solve(struct, ff, rhs)
-        pairs[f"solve_k{k}"] = (fx, bf.banded_fused_solve_plain(struct, ff, rhs))
+        px = bf.banded_fused_solve_plain(struct, ff, rhs)
+        pairs[f"solve_k{k}"] = (fx, px)
+        # K6 (on the k columns, as the solve above, and on every padded
+        # column) and its witness on the same padded operands, every row
+        # and column of the result
+        x, dpad = bf._padded(struct, ff, rhs)
+        y, z = x.clone(), x.clone()
+        bf.banded_fused_solve_cuda(ff.band, ff.invL, dpad, x, k)
+        bf.banded_fused_solve_cuda(ff.band, ff.invL, dpad, z)
+        bf.banded_fused_solve_reference_cuda(ff.band, ff.invL, dpad, y)
+        witness[f"K6_k{k}"] = _same_bits(torch, x, y)
+        witness[f"K6_k{k}_all_columns"] = _same_bits(torch, z, y)
+        witness_abs[f"solve_k{k}"] = _abs(bf._unpadded(struct, y, rhs), px)
         # K2 holds (bw+2)·b·k values of the right-hand side in each CTA's
         # shared memory: eight columns at a time
         kx = (bk.solve(struct, kf, rhs) if k == 1 else torch.cat(
@@ -618,9 +646,12 @@ def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
     return {
         "rel": {k: _rel(*v) for k, v in pairs.items()},
         "abs": {k: _abs(*v) for k, v in pairs.items()},
+        "equal_to_witness": witness,
+        "witness_abs": witness_abs,
         "rel_vs_K1_K2": {k: _rel(*v) for k, v in vs_k1_k2.items()},
-        # K5 keeps the scalar diagonal step, K1 runs the tiled one: their
-        # factors on the real columns must be equal, bit for bit
+        # K5 runs the tiled diagonal step and its witness the scalar one,
+        # K1 the tiled one: their factors on the real columns must be
+        # equal, bit for bit
         "factor_equal_to_K1": {k: bool(torch.equal(*vs_k1_k2[k]))
                                for k in ("band", "invL", "d")},
         "inertia": [plain.banded_inertia(struct, f) for f in (ff, pf, kf)],
@@ -634,6 +665,9 @@ def compare_fused(torch, struct, band, widths=FUSED_WIDTHS):
 def _check_fused(res, tol, where):
     if not res["finite"]:
         raise AssertionError(f"non-finite K5/K6 output at {where}")
+    if not all(res["equal_to_witness"].values()):
+        raise AssertionError(f"K5/K6 differ from their witnesses at {where}: "
+                             f"{res['equal_to_witness']}")
     if max(res["rel"].values()) > tol:
         raise AssertionError(f"K5/K6 disagree with plain at {where}")
     if not all(res["factor_equal_to_K1"].values()):
@@ -672,7 +706,8 @@ def phase_fused_kernels(torch):
                 where = (b, bw, nb, dtype_name, zero_row)
                 emit({"phase": "fused_kernels", "b": b, "bw": bw, "nb": nb,
                       "N": N, "dtype": dtype_name, "zero_row": zero_row,
-                      "staged": bf.staged(b, band.dtype),
+                      "plans": _fused_plans(torch, st, band),
+                      "equal_to_witness": res["equal_to_witness"],
                       "max_rel_err": res["rel"],
                       "max_rel_err_vs_K1_K2": res["rel_vs_K1_K2"], "tol": tol,
                       "factor_equal_to_K1": res["factor_equal_to_K1"],
@@ -689,24 +724,45 @@ def phase_fused_kernels(torch):
                     worst["K6"] = max(worst.get("K6", 0.0),
                                       *(v for k, v in a.items()
                                         if k.startswith("solve")))
+                    w = res["witness_abs"]
+                    worst["K5_witness"] = max(
+                        worst.get("K5_witness", 0.0),
+                        *(w[k] for k in ("band", "invL", "d")))
+                    worst["K6_witness"] = max(
+                        worst.get("K6_witness", 0.0),
+                        *(v for k, v in w.items() if k.startswith("solve")))
 
-    # one K5 call is one CUDA kernel launch; one K1 call is 4·nb (on the
-    # loop's last band, case118's geometry)
+    # one K5 call and one K6 call are one CUDA kernel launch each; one K1
+    # call is 4·nb (on the loop's last band, case118's geometry)
     b, bw, nb = FUSED_GEOMETRIES[-1]
     work = band.float().contiguous()
     invL = torch.zeros((st.nbp, b, b), dtype=work.dtype, device=work.device)
     d = torch.ones((st.nbp * b,), dtype=work.dtype, device=work.device)
+    x = torch.zeros((st.nbp * b, 8), dtype=work.dtype, device=work.device)
     launches = {
         "K5": _count_launches(torch, lambda: bf.banded_fused_factorize_cuda(
             work, invL, d, nb, b, bw)),
+        "K6": _count_launches(torch, lambda: bf.banded_fused_solve_cuda(
+            work, invL, d, x)),
         "K1": _count_launches(torch, lambda: bk.banded_factorize_cuda(
             work, invL, d, nb, b, bw)),
     }
     emit({"phase": "fused_kernels", "b": b, "bw": bw, "nb": nb,
           "device_launches_per_call": launches})
-    if launches["K5"] != 1:
-        raise AssertionError(f"one K5 call made {launches['K5']} launches")
+    if launches["K5"] != 1 or launches["K6"] != 1:
+        raise AssertionError(f"one K5 / K6 call made {launches} launches")
     return worst
+
+
+def _fused_plans(torch, struct, band, widths=FUSED_WIDTHS):
+    """The launch plans of K5 and of K6 at each width, for this band."""
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+
+    b, bw, nb = struct.b, struct.bw, struct.nb
+    plans = {"K5": bf.factorize_plan_for(band, nb, b, bw)._asdict()}
+    for k in widths:
+        plans[f"K6_k{k}"] = bf.solve_plan_for(band, k)._asdict()
+    return plans
 
 
 # -- 3b'. K2 / K4 against their witness ---------------------------------------
@@ -867,11 +923,11 @@ def _diag_fmas(b, p=32):
 
 
 def phase_diag_step(torch):
-    """One launch of the diagonal-step kernel (the tiled routine K1 and K3
-    run) at the flagship's b = 256 on ``DIAG_LANES`` diagonal blocks of
+    """One launch of the diagonal-step kernel (the tiled routine K1, K3
+    and K5 run) at the flagship's b = 256 on ``DIAG_LANES`` diagonal blocks of
     seeded bands (lane 1's holds an exactly zero pivot), for one lane and for
     all of them, float32 and float64: held bit for bit against the scalar
-    routine that K5 keeps and against the plain version, then both routines
+    routine that K5's witness keeps and against the plain version, then both routines
     timed by CUDA events beside the one-SM bound."""
     from madnlp_tpu_torch.ops import banded as plain
     from madnlp_tpu_torch.ops import banded_kernels as bk
@@ -962,15 +1018,14 @@ def _solve(torch, port, dtype, keep_band=None, model=None):
         bk.factorize = factorize
     wall = time.perf_counter() - t
     launches = (bk.banded_factorize_cuda.launches, bk.banded_solve_cuda.launches)
-    _no_witness(bk.counts())
+    _no_witness({**bk.counts(), **bf.witness_counts()})
     return stats, wall, launches
 
 
 def _no_witness(counts):
-    """No solve path reaches the witness of K2 / K4."""
-    if counts["banded_solve_reference_cuda"]:
-        raise AssertionError(f"the reference solve ran on a solve path: "
-                             f"{counts}")
+    """No solve path reaches a witness (of K2 / K4, K5 or K6)."""
+    if any(v for k, v in counts.items() if "reference" in k):
+        raise AssertionError(f"a witness ran on a solve path: {counts}")
 
 
 def _check_solve(stats, dtype, launches):
@@ -1207,6 +1262,7 @@ def _solve_batch(torch, port, keep=None, **kwargs):
     symbolic set-up excluded from the wall).  ``keep`` collects the last
     band each lane factored.  Returns (summary, wall, kernel launches)."""
     from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
     from madnlp_tpu_torch.ops import banded_kernels as bk
 
     solver = port.MadNLPSolver(
@@ -1226,6 +1282,7 @@ def _solve_batch(torch, port, keep=None, **kwargs):
         bk.factorize_batched = keeping
     torch.cuda.synchronize()
     bk.reset_counts()
+    bf.reset_counts()
     t = time.perf_counter()
     try:
         st = solver.solve_batch(BATCH_SCALES, **kwargs)
@@ -1233,7 +1290,7 @@ def _solve_batch(torch, port, keep=None, **kwargs):
     finally:
         bk.factorize_batched = factorize_batched
     wall = time.perf_counter() - t
-    _no_witness(bk.counts())
+    _no_witness({**bk.counts(), **bf.witness_counts()})
     return port.batch_summary(solver.prob, st), wall, bk.counts()
 
 
@@ -1248,11 +1305,13 @@ def _single_lanes(torch, port):
     """The port's single float32 solve of each scenario on the card (K1 and
     K2): the exact reference for the batch's per-lane counters."""
     from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
     from madnlp_tpu_torch.ops import banded_kernels as bk
 
     model = opf.build_sparse(nb=600, seed=0, parametric=True)
     out = []
     bk.reset_counts()
+    bf.reset_counts()
     for scale in BATCH_SCALES:
         s = port.madnlp(model, params=scale, device="cuda",
                         linear_solver=port.LinearSolver.BANDED,
@@ -1262,7 +1321,7 @@ def _single_lanes(torch, port):
         out.append((int(s.status), s.iter, s.counters["factorization_cnt"],
                     s.counters["backsolve_cnt"], s.objective))
     torch.cuda.synchronize()
-    _no_witness(bk.counts())
+    _no_witness({**bk.counts(), **bf.witness_counts()})
     return [np.array(v) for v in zip(*out)]
 
 
@@ -1494,7 +1553,7 @@ def phase_matpower_solve(torch, port):
     for dtype in ("float64", "float32"):
         # the kernels' counts are set to 0 inside _solve, just before
         stats, wall, launches = _solve(torch, port, dtype, model=model)
-        fused = bf.counts()
+        fused = {**bf.counts(), **bf.witness_counts()}
         _check_matpower(name, dtype, stats, launches, fused)
         emit({"phase": "matpower_solve", "case": name, "n": model.n,
               "m": model.m, "dtype": dtype, "status": stats.status.name,
@@ -1579,7 +1638,8 @@ def phase_case118_band(torch, port):
     kept = {}
     stats, wall, launches = _solve(torch, port, "float32", keep_band=kept,
                                    model=_matpower_model(name))
-    _check_matpower(name, "float32", stats, launches, bf.counts())
+    _check_matpower(name, "float32", stats, launches,
+                    {**bf.counts(), **bf.witness_counts()})
     emit({"phase": "case118_band", "dtype": "float32",
           "status": stats.status.name, "iter": stats.iter,
           "objective": stats.objective,
@@ -1604,7 +1664,9 @@ def phase_case118_band(torch, port):
     real64 = compare_fused(torch, st, band32.double(), widths=(1, 8))
     real32 = compare_fused(torch, st, band32, widths=(1, 8))
     emit({"phase": "case118_band", "b": b, "bw": bw, "nb": nb, "N": st.N,
-          "staged": bf.staged(b, band32.dtype),
+          "plans": _fused_plans(torch, st, band32, widths=(1, 8)),
+          "equal_to_witness_float64": real64["equal_to_witness"],
+          "equal_to_witness_float32": real32["equal_to_witness"],
           "float64_max_rel_err": real64["rel"],
           "float64_max_rel_err_vs_K1_K2": real64["rel_vs_K1_K2"],
           "float64_tol": REAL_BAND_RTOL,
@@ -1613,6 +1675,10 @@ def phase_case118_band(torch, port):
           "inertia_float64 (K5, plain, K1)": real64["inertia"],
           "inertia_float32 (K5, plain, K1)": real32["inertia"]})
     _check_fused(real64, REAL_BAND_RTOL, "the case118 band")
+    if not all(real32["equal_to_witness"].values()):
+        raise AssertionError(f"K5/K6 differ from their witnesses on the "
+                             f"case118 band in float32: "
+                             f"{real32['equal_to_witness']}")
 
     work = torch.empty_like(band32)
     invL = torch.zeros((st.nbp, b, b), dtype=band32.dtype, device=band32.device)
@@ -1621,38 +1687,60 @@ def phase_case118_band(torch, port):
     xrhs = xw.clone()
     r1 = xrhs[:, :1].contiguous()
     rw = torch.empty_like(r1)
+
+    def solve_setup():
+        xw.copy_(xrhs)
+        rw.copy_(r1)
+
     times = {
-        "K5": _time_events(
-            torch, lambda: bf.banded_fused_factorize_cuda(work, invL, d, nb, b, bw),
-            lambda: work.copy_(band32), 30),
         "K5_plain": _time_events(
             torch, lambda: bf.banded_fused_factorize_plain(st, band32),
             lambda: None, 5),
-        "K1": _time_events(
-            torch, lambda: bk.banded_factorize_cuda(work, invL, d, nb, b, bw),
-            lambda: work.copy_(band32), 30),
-        "K6": _time_events(
-            torch, lambda: bf.banded_fused_solve_cuda(f.band, f.invL, dpad, xw),
-            lambda: xw.copy_(xrhs), 100),
         "K6_plain": _time_events(
             torch, lambda: bf.banded_fused_solve_plain(st, f, rhs),
             lambda: None, 20),
+        # K5, its witness and K1 in turns, each on a fresh copy of the band
         **_time_turns(torch, {
+            "K5": lambda: bf.banded_fused_factorize_cuda(work, invL, d, nb, b, bw),
+            "K5_witness": lambda: bf.banded_fused_factorize_reference_cuda(
+                work, invL, d, nb, b, bw),
+            "K1": lambda: bk.banded_factorize_cuda(work, invL, d, nb, b, bw)},
+            lambda: work.copy_(band32), 6),
+        # K6 (one right-hand side: its column of the 8 padded ones, as
+        # banded_fused_solve runs it), its witness (all 8), K2 (one column)
+        # and K2's witness in turns
+        **_time_turns(torch, {
+            "K6": lambda: bf.banded_fused_solve_cuda(f.band, f.invL, dpad, xw,
+                                                     1),
+            "K6_witness": lambda: bf.banded_fused_solve_reference_cuda(
+                f.band, f.invL, dpad, xw),
             "K2": lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rw),
             "K2_witness": lambda: bk.banded_solve_reference_cuda(
                 f.band, f.invL, f.d, rw)},
-            lambda: rw.copy_(r1), 10),
+            solve_setup, 10),
     }
+    # the witnesses' launches on their op path: one per call
+    bf.reset_counts()
+    bf.banded_fused_factorize_reference_cuda(work, invL, d, nb, b, bw)
+    bf.banded_fused_solve_reference_cuda(f.band, f.invL, dpad, xw)
+    torch.cuda.synchronize()
+    witness_launches = (bf.banded_fused_factorize_reference_cuda.launches,
+                        bf.banded_fused_solve_reference_cuda.launches)
     # K5 computes K1's function and K6 K2's (one right-hand side)
     bounds = _bounds(nb, b, bw, band32.element_size(), "float32")
     bounds = {"K5": bounds["K1"], "K6": bounds["K2"], "K2": bounds["K2"]}
+    plans = _fused_plans(torch, st, band32, widths=(1,))
     emit({"phase": "case118_timing", "dtype": "float32", "b": b, "bw": bw,
           "nb": nb, "ms": times, "bounds": bounds,
+          "K5_plan": plans["K5"], "K6_plan": plans["K6_k1"],
           "K5_over_K1": times["K5"] / times["K1"],
+          "K5_witness_over_K5": times["K5_witness"] / times["K5"],
           "K6_over_K2": times["K6"] / times["K2"],
+          "K6_witness_over_K6": times["K6_witness"] / times["K6"],
           "K2_witness_over_K2": times["K2_witness"] / times["K2"],
           "K2_plan": _plan_line(torch, f.band, rw)})
-    return {"launches": op_launches, "times": times, "bounds": bounds}
+    return {"launches": op_launches, "witness_launches": witness_launches,
+            "times": times, "bounds": bounds}
 
 
 # -- 6. the dense LDLᵀ kernel K7 on seeded matrices ----------------------------
@@ -1801,7 +1889,8 @@ def _dense_solve(torch, port, dtype, keep=None):
     finally:
         ds.factorize = factorize
     wall = time.perf_counter() - t
-    return stats, wall, {**bk.counts(), **bf.counts(), **dk.counts()}, \
+    return stats, wall, {**bk.counts(), **bf.counts(), **bf.witness_counts(),
+                         **dk.counts()}, \
         solver.opts
 
 
@@ -2070,6 +2159,24 @@ def main():
             "launches": band118["launches"][i],
             "max_abs_err": worst[key],
             "ms": band118["times"][key],
+            "plain_ms": band118["times"][key + "_plain"],
+            "bound_ms": band118["bounds"][key]["bound_ms"],
+            "bound_by": band118["bounds"][key]["bound_by"],
+            "library_ms": None,
+        })
+    # the witnesses of K5 and K6 (the kernels they replaced): 0 launches on
+    # every solve path (asserted); this is their op path's count on the
+    # case118 band
+    for i, (name, key, line) in enumerate((
+            ("banded_fused_factorize_reference_cuda (K5 witness)", "K5", 251),
+            ("banded_fused_solve_reference_cuda (K6 witness)", "K6", 322))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "madnlp_tpu_torch/csrc/banded_fused.cu",
+            "replaces": f"madnlp_tpu/ops/pallas_banded.py:{line}",
+            "launches": band118["witness_launches"][i],
+            "max_abs_err": worst[key + "_witness"],
+            "ms": band118["times"][key + "_witness"],
             "plain_ms": band118["times"][key + "_plain"],
             "bound_ms": band118["bounds"][key]["bound_ms"],
             "bound_by": band118["bounds"][key]["bound_by"],

@@ -3,15 +3,15 @@
 // madnlp_tpu/ops/pallas_banded.py:_ldlt_with_inverse (panel p = 32).  Two
 // device functions compute it, bit for bit alike:
 //
-// diag_ldlt_block (K5, csrc/banded_fused.cu).  The scalar pivot recursion
-// runs on a 32×64 corner tile [C | I] in shared memory with three CTA
-// barriers per pivot; the panel, trailing and L⁻¹-accumulation products are
-// scalar FMA loops, one output element per thread and iteration, that load
-// both operands for every FMA.  The block A and its inverse R may lie in
-// global memory or in shared memory (K5 where it fits): the code reads them
-// through generic pointers.
+// diag_ldlt_block (K5's witness, csrc/banded_fused.cu).  The scalar pivot
+// recursion runs on a 32×64 corner tile [C | I] in shared memory with three
+// CTA barriers per pivot; the panel, trailing and L⁻¹-accumulation products
+// are scalar FMA loops, one output element per thread and iteration, that
+// load both operands for every FMA.  The block A and its inverse R may lie
+// in global memory or in shared memory (the witness where it fits): the
+// code reads them through generic pointers.
 //
-// diag_ldlt_block_tiled (K1 and K3, csrc/banded_ldlt.cu), A and R in
+// diag_ldlt_block_tiled (K1, K3 and K5), A and R in
 // global memory (L2-resident: the b = 256 block and its inverse are 256 KB
 // each in float32).  What bounds the step on this card: it runs on one SM
 // (one CTA per block, the other SMs wait for it inside K1's column loop),
@@ -51,9 +51,9 @@
 // division or subtraction; the corner takes M[r][c] −= l[r]·M[j][c] in
 // pivot order j with the same divisions.  Only which thread computes an
 // element, and when, changes.  The build keeps nvcc's defaults (no fast
-// math, FMA contraction on) and no tensor cores are used.  K5, which keeps
-// diag_ldlt_block, is the card-side witness: chip_smoke.py asserts K1's
-// and K3's factors equal K5's exactly.
+// math, FMA contraction on) and no tensor cores are used.  K5's witness,
+// which keeps diag_ldlt_block, is the card-side witness: chip_smoke.py
+// asserts K1's, K3's and K5's factors equal its exactly.
 //
 // A pivot with |d| <= 1e-30 divides as inf, as in the TPU kernel: the
 // inertia that drives the IPM's regularization ladder must match exactly.

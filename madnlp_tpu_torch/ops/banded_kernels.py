@@ -10,7 +10,7 @@
   ``madnlp_tpu/ops/pallas_banded_stream.py:_stream_solve_call_batched``;
 * :func:`banded_diag_step_cuda` launches the diagonal step of K1 and K3
   alone (``pallas_banded.py:_ldlt_with_inverse``), for timing it and for
-  holding it bit for bit against the scalar routine K5 keeps;
+  holding it bit for bit against the scalar routine K5's witness keeps;
 * :func:`banded_solve_reference_cuda` launches the one-CTA-per-lane solve
   that K2 and K4 replaced, the card-side witness they equal bit for bit
   (no solve path reaches it).
@@ -439,7 +439,7 @@ def banded_diag_step_cuda(A, R, dout, tiled: bool = True):
     """The diagonal step of K1 and K3 alone: LDLᵀ and L⁻¹ of each
     lower-stored block ``A (lanes, b, b)``, in place, one CTA per block:
     ``A[i]`` <- strict-lower L + diag(d) (upper zero), ``R[i]`` <- L⁻¹,
-    ``dout[i]`` <- d.  ``tiled=False`` runs the scalar routine that K5 keeps
+    ``dout[i]`` <- d.  ``tiled=False`` runs the scalar routine that K5's witness keeps
     (``diag_ldlt_block``), which the tiled one equals bit for bit."""
     if not A.is_cuda:
         raise ValueError("banded_diag_step_cuda needs CUDA tensors")

@@ -222,8 +222,8 @@ def test_cpu_tensors_take_the_plain_path():
                                      (64, "float32")])
 def test_block_ldlt_matches_pallas_ldlt_with_inverse(b, dtype):
     """The plain diagonal step (``ldlt_with_inverse``: the panel-blocked
-    LDLᵀ and L⁻¹ of one lower-stored block, the reference of K1/K3's tiled
-    step and K5's scalar one) against the TPU kernel's
+    LDLᵀ and L⁻¹ of one lower-stored block, the reference of K1/K3/K5's
+    tiled step and of the scalar one K5's witness keeps) against the TPU kernel's
     ``pallas_banded._ldlt_with_inverse``, on a dominant indefinite block and
     on one with an exactly zero pivot."""
     from madnlp_tpu.ops.pallas_banded import _ldlt_with_inverse

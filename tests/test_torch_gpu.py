@@ -1,15 +1,17 @@
 """The Hopper kernels of the port against their plain PyTorch versions, on
 the card: K1/K2 (one system) and K3/K4 (a batch of lanes under an active
 mask, also held against K1/K2 on each lane) of csrc/banded_ldlt.cu, K5/K6
-(the whole-band factorize in one launch and the column-tiled solve) of
-csrc/banded_fused.cu, and K7, the whole-matrix dense LDLᵀ of
+(the whole-band factorize in one launch over a thread-block cluster and
+the solve over a cluster per column tile) of csrc/banded_fused.cu, held bit
+for bit against their witnesses (the one-CTA kernels they replaced), and
+K7, the whole-matrix dense LDLᵀ of
 csrc/dense_ldlt.cu (held bit for bit against its first version, the witness,
 and at blocks the witness does not take against the plain version); small
 solves of the sparse, batched and dense paths
 on the card against the CPU; and the case118 bench-configuration solve
-on the card against the JAX package's numbers.  K1 and K3 run the tiled
-diagonal step, K5 the scalar one it was rewritten from: their factors, and
-the two steps alone, are held equal bit for bit.  K2 and K4 run one
+on the card against the JAX package's numbers.  K1, K3 and K5 run the
+tiled diagonal step, K5's witness the scalar one it was rewritten from:
+their factors, and the two steps alone, are held equal bit for bit.  K2 and K4 run one
 thread-block cluster per system; the one-CTA solve they replaced
 (``banded_solve_reference_cuda``) is their witness, held equal bit for
 bit.
@@ -376,9 +378,10 @@ def test_fused_kernels_match_plain_and_k1_k2(b, bw, nb, zero, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("b,bw,nb", [(256, 2, 11), (64, 5, 10)])
 def test_k1_and_k3_factors_equal_k5_bit_for_bit(b, bw, nb, dtype):
-    """K1 and K3 run the tiled diagonal step, K5 the scalar one it was
-    rewritten from: the factors on the real columns must be equal, on a
-    dominant band and on one with an exactly zero pivot (lane 1)."""
+    """K1, K3 and K5 run the tiled diagonal step (K5's witness the scalar
+    one it was rewritten from): the factors on the real columns must be
+    equal, on a dominant band and on one with an exactly zero pivot (lane
+    1)."""
     _need_cuda()
     st, bands = _lanes(nb, b, bw, dtype, zero_lane=1, lanes=2)
     B = bands.shape[0]
@@ -601,3 +604,93 @@ def test_solve_wrappers_raise_where_no_plan_fits():
                                      np.ones(3, bool))
     assert (bk.banded_solve_cuda.launches,
             bk.banded_solve_batched_cuda.launches) == before
+
+
+# K5 and K6 against their witnesses (the one-CTA kernels they replaced):
+# the kernel phase's geometries, case118's, the ring's and a narrow block
+FUSED_GEOMETRIES = [(256, 2, 11), (256, 4, 8), (128, 7, 12), (64, 1, 12),
+                    (64, 5, 10), (32, 2, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb", FUSED_GEOMETRIES)
+def test_fused_factorize_equals_its_witness_bit_for_bit(b, bw, nb, dtype):
+    """K5 (one cluster) equals its witness and K1 bit for bit on a dominant
+    band and on one with an exactly zero pivot (lane 1), overhang included,
+    in one launch per call."""
+    _need_cuda()
+    st, bands = _lanes(nb, b, bw, dtype, zero_lane=1, lanes=2)
+    for i in range(bands.shape[0]):
+        out = []
+        for fn in (bf.banded_fused_factorize_cuda,
+                   bf.banded_fused_factorize_reference_cuda,
+                   bk.banded_factorize_cuda):
+            band = bands[i].clone()
+            invL = torch.zeros((st.nbp, b, b), dtype=dtype, device="cuda")
+            d = torch.ones((st.nbp * b,), dtype=dtype, device="cuda")
+            bf.reset_counts()
+            fn(band, invL, d, nb, b, bw)
+            torch.cuda.synchronize()
+            out.append((band, invL, d))
+            if fn is bf.banded_fused_factorize_cuda:
+                assert bf.counts()["banded_fused_factorize_cuda"] == 1
+                assert not any(bf.witness_counts().values())
+        new, ref, k1 = out
+        for x, y in zip(new, ref):
+            assert _same_bits(x, y)
+        for x, y in zip(new, k1):
+            assert _same_bits(x[:nb], y[:nb])
+        f = plain.BandedFactor(new[0], new[1], new[2][: nb * b])
+        assert plain.banded_inertia(st, f)[1] == (1 if i == 1 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb", FUSED_GEOMETRIES)
+def test_fused_solve_equals_its_witness_bit_for_bit(b, bw, nb, dtype):
+    """K6 (a cluster per tile of columns) equals its witness bit for bit,
+    overhang rows included, at 1, 8 and 130 right-hand sides, on a factor
+    with an exactly zero pivot, in one launch per call."""
+    _need_cuda()
+    st, bands = _lanes(nb, b, bw, dtype, zero_lane=0, lanes=1)
+    f = bf.banded_fused_factorize(st, bands[0].clone())
+    rng = np.random.default_rng(b + bw + nb)
+    for k in (1, 8, 130):
+        rhs = torch.as_tensor(rng.standard_normal((st.N, k)), dtype=dtype,
+                              device="cuda")
+        x, dpad = bf._padded(st, f, rhs)
+        y, z = x.clone(), x.clone()
+        bf.reset_counts()
+        bf.banded_fused_solve_cuda(f.band, f.invL, dpad, x, k)
+        torch.cuda.synchronize()
+        assert bf.counts()["banded_fused_solve_cuda"] == 1
+        assert not any(bf.witness_counts().values())
+        bf.banded_fused_solve_cuda(f.band, f.invL, dpad, z)   # every column
+        bf.banded_fused_solve_reference_cuda(f.band, f.invL, dpad, y)
+        torch.cuda.synchronize()
+        assert _same_bits(x, y), (k, bf.solve_plan_for(f.band, k))
+        assert _same_bits(z, y), (k, bf.solve_plan_for(f.band, z.shape[1]))
+        assert torch.isfinite(x).all()
+
+
+def test_fused_kernels_are_one_device_launch_each():
+    """One K5 call and one K6 call are one CUDA kernel each (the profiler's
+    count), the witnesses none."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    st, bands = _lanes(10, 64, 5, torch.float32, zero_lane=None, lanes=1)
+    rhs = torch.ones(st.N, device="cuda")
+    bf.banded_fused_solve(st, bf.banded_fused_factorize(st, bands[0].clone()),
+                          rhs)                       # builds and plans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        f = bf.banded_fused_factorize(st, bands[0].clone())
+        bf.banded_fused_solve(st, f, rhs)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if getattr(ev, "device_type", None)
+             == torch.autograd.DeviceType.CUDA]
+    assert sum("cluster_factorize_kernel" in n for n in names) == 1, names
+    assert sum("cluster_fused_solve_kernel" in n for n in names) == 1, names
+    assert not any("fused_factorize_kernel" in n or "fused_solve_kernel" in n
+                   for n in names if "cluster" not in n), names
