@@ -130,6 +130,34 @@ script exits non-zero without a result):
    and ``torch.linalg.cholesky`` of an SPD matrix of the same size as
    context (a different function: no PyTorch call computes an unpivoted
    LDLᵀ).
+9. ``restoration`` — the parametric flagship model
+   (``opf.build_sparse(nb=600, seed=0, parametric=True)``) at load scale
+   2.0, which is infeasible, with the flagship's options: the solve passes
+   through soft and robust feasibility restoration, whose factorizations
+   and solves are K1 / K2 as in the regular phase.  In float64 and float32
+   on the card, each held to the JAX package's status and ``inf_pr`` at
+   exit and to the one-ulp spread of its counters (iterations,
+   factorizations, backsolves, soft and robust steps;
+   ``RESTORATION_REFERENCE``, ``RESTORATION_SPREAD``), with every kernel's
+   launch count over the solve (K1 once per factorization and per
+   least-squares multiplier solve, K2 at least once per backsolve, K5-K7
+   and every witness never); the float32 solve repeated under
+   torch.profiler, bit for bit, for the card's busy share.  Then the dense
+   path through restoration: ``suite.infeasible()`` and ``suite.eigmina()``
+   (eigmina's condensed system has equality rows, so LDLᵀ, which is K7)
+   against the JAX package's status, eigmina's objective against its
+   optimum 1.
+10. ``warm_start`` — the parametric flagship model in float64 solved at
+    load scale 1.0 and re-solved on the same solver at 1.0 (held to the
+    JAX package's warm re-solve: status, iterations, factorizations) and at
+    1.04 (the optimum of the new instance, held to the JAX package's cold
+    solve at 1.04; the state carries the new parameters), K1 / K2 launched
+    and no witness.
+11. ``checkpoint`` — the flagship float64 solve driven by hand through the
+    three-phase loop for ``CHECKPOINT_AFTER`` steps, saved
+    (``utils.checkpoint.save_state``), loaded back onto the card into a
+    fresh solver (``resume``) and finished there by the same loop: equal
+    to an uninterrupted solve, counters and solution bit for bit.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -319,6 +347,98 @@ TIMED_DENSE_SOLVES = 3
 WITNESS_BLOCKS = (32, 64, 128)
 ODD_BLOCKS = (48, 100)
 DENSE_TURN_ROUNDS = 4      # rounds of K7 and its witness in turns
+
+# The restoration path: the parametric flagship model at load scale 2.0,
+# which is infeasible (the loads exceed what the network can carry), with
+# the flagship's options.  The JAX package's results on the CPU, from the
+# hosted three-phase loop of tools/restoration_spread.py (its unperturbed
+# solve):
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tools/restoration_spread.py jax \
+#       --dtype DT --backend BACKEND --seeds 0
+# with BACKEND "auto" in float64 and "pallas_interpret" in float32 (the
+# TPU kernel's factorization order; the XLA band loop's counts,
+# RESTORATION_XLA_FLOAT32, are reported beside).  "restore" and "robust"
+# count the soft and robust restoration steps, "steps" every step of the
+# loop; ``iter`` counts the steps that move the iterate.
+RESTORATION_THETA = 2.0
+RESTORATION_REFERENCE = {
+    "float64": {"status": "INFEASIBLE_PROBLEM_DETECTED", "iter": 194,
+                "factorization_cnt": 213, "backsolve_cnt": 218,
+                "restore": 15, "robust": 72, "steps": 208,
+                "inf_pr": 5.281744150808372},
+    "float32": {"status": "INFEASIBLE_PROBLEM_DETECTED", "iter": 211,
+                "factorization_cnt": 282, "backsolve_cnt": 997,
+                "restore": 15, "robust": 83, "steps": 226,
+                "inf_pr": 5.2817441483281655},
+}
+RESTORATION_XLA_FLOAT32 = {"iter": 220, "factorization_cnt": 266,
+                           "backsolve_cnt": 929, "restore": 15, "robust": 86,
+                           "steps": 235}
+# The counts of a solve this long are a property of the rounding, not of
+# the algorithm.  The port's phases agree step for step with the JAX
+# package's until one line search's decision flips (step 165 of 208 in
+# float64 on the CPU), and solves from the initial point moved by one
+# float64 ulp (tools/restoration_spread.py, the unperturbed start and
+# seeds 1..N) spread as below, with every solve INFEASIBLE_PROBLEM_DETECTED
+# at the same point (inf_pr 5.2817441 in every solve):
+#   float64, JAX on the CPU (seeds 1-18): iter 190-196, factorizations
+#     209-215, backsolves 212-221, soft steps 13-15, robust 70-73, steps
+#     204-210;
+#   float64, the port on the card (seeds 1-6): 190-196, 209-215, 213-219,
+#     13-16, 70-71, 204-210 (its unperturbed solve 196/215/219/16/71/210;
+#     JAX's seed 16 takes 196/215/221/15/73/210: the same iterations,
+#     factorizations and steps, split otherwise between the phases);
+#   float32, JAX in the TPU kernel's order (pallas_interpret, seeds 1-6):
+#     iter 198-256, factorizations 245-334, backsolves 839-1310, soft
+#     steps 12-15, robust 73-120, steps 211-272;
+#   float32, the port on the card (seeds 1-6): 195-216, 218-273, 730-1024,
+#     13-14, 70-79, 209-231 (its unperturbed solve 216/273/1024/14/79/231,
+#     inside JAX's range on every counter).
+# Each counter of the card's solve is held to the union of both packages'
+# ranges in its dtype, the status exactly and inf_pr at exit within
+# RESTORATION_INF_PR_RTOL of the JAX package's (ROADMAP §C).
+RESTORATION_SPREAD = {
+    "float64": {"iter": (190, 196), "factorization_cnt": (209, 215),
+                "backsolve_cnt": (212, 221), "restore": (13, 16),
+                "robust": (70, 73), "steps": (204, 210)},
+    "float32": {"iter": (195, 256), "factorization_cnt": (218, 334),
+                "backsolve_cnt": (730, 1310), "restore": (12, 15),
+                "robust": (70, 120), "steps": (209, 272)},
+}
+RESTORATION_INF_PR_RTOL = 1e-8
+# The dense path through restoration: the behaviour suite's infeasible
+# model and eigmina, whose solve passes through robust restoration, with
+# the JAX package's status (tests/test_behavior_suite.py) and eigmina's
+# optimum 1 within 1e-6
+DENSE_RESTORATION = {"infeasible": "INFEASIBLE_PROBLEM_DETECTED",
+                     "eigmina": "SOLVE_SUCCEEDED"}
+EIGMINA_OPTIMUM = 1.0
+# The warm start: the parametric flagship model in float64 solved at load
+# scale 1.0, re-solved on the same solver at 1.0 and then at 1.04.  The
+# JAX package's results on the CPU (status, iterations, factorization_cnt
+# — cumulative over the solver's solves, as both packages count it — and
+# objective): its cold solve at 1.0, its warm re-solve at 1.0, and its
+# cold solve at 1.04 (its warm re-solve at 1.04 keeps the old parameters
+# and returns the optimum at 1.0, a fault of the reference the port does
+# not copy; tests/test_torch_restoration.py).  From
+#   JAX_PLATFORMS=cpu python -c 'import numpy as np, madnlp_tpu as M
+#   from madnlp_tpu.models.instances import opf
+#   from madnlp_tpu.utils.options import RichardsonOptions as R
+#   s = M.MadNLPSolver(opf.build_sparse(nb=600, seed=0, parametric=True),
+#       linear_solver=M.LinearSolver.BANDED, richardson=R(mu_scaled=True),
+#       print_level=M.PrintLevel.ERROR)
+#   for p, cold in ((1.0, True), (1.0, False), (1.04, True)):
+#       s.state = None if cold else s.state
+#       r = s.solve(params=np.asarray(p))
+#       print(r.status.name, r.iter, r.counters["factorization_cnt"],
+#             repr(r.objective))'
+WARM_REFERENCE = {
+    "cold_1.0": ("SOLVE_SUCCEEDED", 25, 25, 583.7230018594349),
+    "warm_1.0": ("SOLVE_SUCCEEDED", 27, 55, 583.7230018594357),
+    "cold_1.04": ("SOLVE_SUCCEEDED", 25, 25, 640.3292897555045),
+}
+WARM_OBJ_RTOL = 1e-6
+CHECKPOINT_AFTER = 4     # hand-driven steps before the checkpoint
 
 
 def emit(obj):
@@ -1225,17 +1345,22 @@ def phase_solve(torch, port):
     return results
 
 
-def _profile(torch, port, run=None):
+def _profile(torch, port, run=None, host=True):
     """One more float32 solve (or ``run()``, which returns its iteration
     count and wall) under torch.profiler: the device time by kernel name
-    and the share of the wall during which the card was busy."""
+    and the share of the wall during which the card was busy.  ``host``:
+    record the host's operators too (off for a long solve, whose millions
+    of host events take minutes to read back)."""
     from torch.profiler import ProfilerActivity, profile
 
     if run is None:
         def run():
             stats, wall, _ = _solve(torch, port, "float32")
             return stats.iter, wall
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         iters, wall = run()
     by_name, launches = {}, 0
     for ev in prof.events():
@@ -2105,6 +2230,292 @@ def phase_dense_main_matrix(torch, K32):
             "bounds": bounds}
 
 
+# -- 9. restoration, warm start and checkpoint -----------------------------------
+
+
+def _all_counts():
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+
+    return {**bk.counts(), **bf.counts(), **bf.witness_counts(), **dk.counts()}
+
+
+def _reset_all_counts():
+    from madnlp_tpu_torch.ops import banded_fused_kernels as bf
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+
+    bk.reset_counts()
+    bf.reset_counts()
+    dk.reset_counts()
+
+
+def _count_steps(solver):
+    """Count the solver's steps by phase and its least-squares multiplier
+    solves (one uncounted factorization each: the start, and every return
+    from robust restoration to the regular phase)."""
+    seen = {"regular": 0, "restore": 0, "robust": 0, "least_squares": 0}
+    k = solver.kernel
+    for key, name in (("regular", "regular_step"), ("restore", "restore_step"),
+                      ("robust", "robust_step"),
+                      ("least_squares", "_least_squares_duals")):
+        inner = getattr(k, name)
+
+        def counted(st, inner=inner, key=key):
+            seen[key] += 1
+            return inner(st)
+        setattr(k, name, counted)
+    return seen
+
+
+def _banded_solver(port, model, dtype):
+    return port.MadNLPSolver(
+        model, device="cuda", linear_solver=port.LinearSolver.BANDED,
+        dtype=dtype, richardson=port.RichardsonOptions(mu_scaled=True),
+        print_level=port.PrintLevel.ERROR)
+
+
+def _restoration_solve(torch, port, dtype):
+    """The parametric flagship at load scale 2.0 on the card (model and
+    set-up excluded from the wall), every kernel's count set to 0 just
+    before.  Returns (stats, wall, kernel counts, step counts)."""
+    from madnlp_tpu_torch.models.instances import opf
+
+    solver = _banded_solver(
+        port, opf.build_sparse(nb=600, seed=0, parametric=True), dtype)
+    seen = _count_steps(solver)
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t = time.perf_counter()
+    stats = solver.solve(params=RESTORATION_THETA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return stats, wall, _all_counts(), seen
+
+
+def _restoration_counters(stats, seen):
+    c = stats.counters
+    return {"iter": stats.iter, "factorization_cnt": c["factorization_cnt"],
+            "backsolve_cnt": c["backsolve_cnt"], "restore": seen["restore"],
+            "robust": seen["robust"],
+            "steps": seen["regular"] + seen["restore"] + seen["robust"]}
+
+
+def _check_banded_launches(what, facts, backs, counts, seen):
+    """K1 once per factorization (``facts`` in the run) and per
+    least-squares solve, K2 at least once per backsolve; K5-K7 and every
+    witness never."""
+    others = dict(counts)
+    k1 = others.pop("banded_factorize_cuda")
+    k2 = others.pop("banded_solve_cuda")
+    if k1 != facts + seen["least_squares"] or k2 < backs \
+            or any(others.values()):
+        raise AssertionError(f"{what}: kernels launched {counts}, "
+                             f"{facts} factorizations, {backs} backsolves, "
+                             f"{seen}")
+
+
+def _check_restoration(stats, dtype, counts, seen):
+    ref = RESTORATION_REFERENCE[dtype]
+    got = _restoration_counters(stats, seen)
+    if stats.status.name != ref["status"]:
+        raise AssertionError(f"restoration {dtype}: status "
+                             f"{stats.status.name}, JAX {ref['status']}")
+    bad = {k: v for k, v in got.items()
+           if not RESTORATION_SPREAD[dtype][k][0] <= v
+           <= RESTORATION_SPREAD[dtype][k][1]}
+    if bad:
+        raise AssertionError(f"restoration {dtype}: {bad} outside the one-ulp "
+                             f"spread {RESTORATION_SPREAD[dtype]}")
+    if abs(stats.primal_feas - ref["inf_pr"]) > \
+            RESTORATION_INF_PR_RTOL * ref["inf_pr"]:
+        raise AssertionError(f"restoration {dtype}: inf_pr "
+                             f"{stats.primal_feas!r}, JAX {ref['inf_pr']!r}")
+    if not np.isfinite(stats.solution).all():
+        raise AssertionError(f"restoration {dtype}: non-finite solution")
+    _check_banded_launches(f"restoration {dtype}",
+                           stats.counters["factorization_cnt"],
+                           stats.counters["backsolve_cnt"], counts, seen)
+    return got
+
+
+def phase_restoration(torch, port):
+    from madnlp_tpu_torch.models.instances import suite
+
+    out = {}
+    for dtype in ("float64", "float32"):
+        stats, wall, counts, seen = _restoration_solve(torch, port, dtype)
+        got = _check_restoration(stats, dtype, counts, seen)
+        ref = RESTORATION_REFERENCE[dtype]
+        emit({"phase": "restoration", "dtype": dtype, "theta": RESTORATION_THETA,
+              "status": stats.status.name, **got,
+              "equal_to_jax": all(got[k] == ref[k] for k in got),
+              "inf_pr": stats.primal_feas, "objective": stats.objective,
+              "reference": ref, "spread": RESTORATION_SPREAD[dtype],
+              **({"reference_xla_loop": RESTORATION_XLA_FLOAT32}
+                 if dtype == "float32" else {}),
+              "least_squares_solves": seen["least_squares"],
+              "launches": counts, "wall_s": wall,
+              "iter_per_s": stats.iter / wall,
+              "steps_per_s": got["steps"] / wall})
+        out[dtype] = (stats, counts)
+    # the repeat runs under torch.profiler (which changes no arithmetic):
+    # bit for bit the first float32 solve, and the card's busy share
+    first, counts32 = out["float32"]
+    repeat = {}
+
+    def profiled():
+        stats, wall, _, _ = _restoration_solve(torch, port, "float32")
+        repeat["stats"] = stats
+        return stats.iter, wall
+    prof = _profile(torch, port, profiled, host=False)
+    again = repeat["stats"]
+    same = (again.objective == first.objective
+            and np.array_equal(again.solution, first.solution)
+            and np.array_equal(again.multipliers, first.multipliers)
+            and again.counters == first.counters)
+    emit({"phase": "restoration", "dtype": "float32", "repeat": True,
+          "under_profiler": True, "bit_identical": same})
+    if not same:
+        raise AssertionError("the repeated float32 restoration solve differs")
+    emit(dict(phase="restoration_profile", dtype="float32", **prof))
+
+    # the dense path (K7 where the condensed system has equality rows)
+    for name, status in DENSE_RESTORATION.items():
+        solver = port.MadNLPSolver(getattr(suite, name)(), device="cuda",
+                                   print_level=port.PrintLevel.ERROR)
+        seen = _count_steps(solver)
+        _reset_all_counts()
+        stats = solver.solve()
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        k7 = counts.pop("dense_ldlt_cuda")
+        ldl = solver.opts.linear_solver == port.LinearSolver.LDL
+        emit({"phase": "restoration_dense", "model": name,
+              "status": stats.status.name, "iter": stats.iter,
+              "objective": stats.objective, "counters": stats.counters,
+              "restore": seen["restore"], "robust": seen["robust"],
+              "kkt_system": solver.opts.kkt_system.name,
+              "linear_solver": solver.opts.linear_solver.name,
+              "K7_launches": k7, "jax_status": status})
+        if stats.status.name != status:
+            raise AssertionError(f"dense {name}: status {stats.status.name}, "
+                                 f"JAX {status}")
+        if name == "eigmina" and abs(stats.objective - EIGMINA_OPTIMUM) > 1e-6:
+            raise AssertionError(f"eigmina: objective {stats.objective!r}")
+        want = stats.counters["factorization_cnt"] + seen["least_squares"]
+        if k7 != (want if ldl else 0) or any(counts.values()):
+            raise AssertionError(f"dense {name}: K7 {k7}, others {counts}")
+    return {"launches": (counts32["banded_factorize_cuda"],
+                         counts32["banded_solve_cuda"])}
+
+
+def phase_warm_start(torch, port):
+    from madnlp_tpu_torch.models.instances import opf
+
+    solver = _banded_solver(
+        port, opf.build_sparse(nb=600, seed=0, parametric=True), "float64")
+    seen = _count_steps(solver)
+    runs = {}
+    facts = backs = 0      # the solver's counters run on across re-solves
+    for key, theta in (("cold_1.0", 1.0), ("warm_1.0", 1.0),
+                       ("warm_1.04", 1.04)):
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        seen.update(dict.fromkeys(seen, 0))
+        t = time.perf_counter()
+        stats = solver.solve(params=theta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _all_counts()
+        c = stats.counters
+        _check_banded_launches(f"warm start {key}",
+                               c["factorization_cnt"] - facts,
+                               c["backsolve_cnt"] - backs, counts, seen)
+        facts, backs = c["factorization_cnt"], c["backsolve_cnt"]
+        runs[key] = stats
+        line = {"phase": "warm_start", "run": key, "theta": theta,
+                "status": stats.status.name, "iter": stats.iter,
+                "factorization_cnt": stats.counters["factorization_cnt"],
+                "objective": stats.objective,
+                "state_theta": float(solver.state.theta),
+                "launches": counts, "wall_s": wall}
+        if key in WARM_REFERENCE:
+            status, iters, facts, obj = WARM_REFERENCE[key]
+            line["reference"] = WARM_REFERENCE[key]
+            if (stats.status.name, stats.iter,
+                    stats.counters["factorization_cnt"]) != (status, iters, facts) \
+                    or abs(stats.objective - obj) > OBJ_RTOL * abs(obj):
+                emit(line)
+                raise AssertionError(f"warm start {key}: differs from JAX")
+        else:
+            status, iters, facts, obj = WARM_REFERENCE["cold_1.04"]
+            line["jax_cold_1.04"] = WARM_REFERENCE["cold_1.04"]
+            if stats.status.name != status \
+                    or abs(stats.objective - obj) > WARM_OBJ_RTOL * abs(obj) \
+                    or float(solver.state.theta) != theta:
+                emit(line)
+                raise AssertionError("warm start at 1.04: not the new "
+                                     "instance's optimum")
+        emit(line)
+    return runs
+
+
+def phase_checkpoint(torch, port):
+    import tempfile
+
+    from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.utils.checkpoint import resume, save_state
+    from madnlp_tpu_torch.utils.status import Status as S
+
+    def model():
+        return opf.build_sparse(nb=600, seed=0)
+
+    def steps(solver, st, n=None):
+        k = solver.kernel
+        step = {int(S.REGULAR): k.regular_step, int(S.RESTORE): k.restore_step,
+                int(S.ROBUST): k.robust_step}
+        done = 0
+        while st.status in step and (n is None or done < n):
+            st = step[st.status](st)
+            done += 1
+        return st
+
+    whole = _banded_solver(port, model(), "float64").solve()
+    first = _banded_solver(port, model(), "float64")
+    st = steps(first, first.kernel.initialize(None), CHECKPOINT_AFTER)
+    with tempfile.TemporaryDirectory() as folder:
+        path = os.path.join(folder, "state.npz")
+        save_state(st, path)
+        size = os.path.getsize(path)
+        second = _banded_solver(port, model(), "float64")
+        _reset_all_counts()
+        st2 = resume(second, path)
+    on_card = st2.x.device.type == "cuda" and st2.RR.pp.device.type == "cuda"
+    st2 = steps(second, st2)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    resumed = second._stats(st2, 0.0)
+    same = (resumed.iter == whole.iter and resumed.counters == whole.counters
+            and np.array_equal(resumed.solution, whole.solution)
+            and np.array_equal(resumed.multipliers, whole.multipliers)
+            and resumed.objective == whole.objective)
+    emit({"phase": "checkpoint", "after_steps": CHECKPOINT_AFTER,
+          "file_bytes": size, "loaded_on_card": on_card,
+          "status": resumed.status.name, "iter": resumed.iter,
+          "uninterrupted_iter": whole.iter,
+          "factorization_cnt": resumed.counters["factorization_cnt"],
+          "uninterrupted_factorization_cnt":
+              whole.counters["factorization_cnt"],
+          "bit_identical": same, "launches_after_resume": counts})
+    if not (same and on_card and resumed.status == port.Status.SOLVE_SUCCEEDED):
+        raise AssertionError("the resumed solve differs from the "
+                             "uninterrupted one")
+    if not counts["banded_factorize_cuda"]:
+        raise AssertionError("the resumed solve did not launch K1")
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -2129,6 +2540,11 @@ def main():
     worst["K7_witness"] = phase_dense_witness(torch)
     dense = phase_dense_solve(torch, port)
     main_matrix = phase_dense_main_matrix(torch, dense["K"])
+    for phase in (phase_restoration, phase_warm_start, phase_checkpoint):
+        t = time.perf_counter()
+        phase(torch, port)
+        emit({"phase": phase.__name__[len("phase_"):], "phase_seconds":
+              time.perf_counter() - t})
 
     kernels = []
     for path, i, name, key, errs, line in (

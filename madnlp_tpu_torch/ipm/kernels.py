@@ -1,5 +1,5 @@
-"""IPM math kernels — port of ``madnlp_tpu/ipm/kernels.py`` (everything
-above ``get_theta_R``; the restoration kernels come with restoration).
+"""IPM math kernels — port of ``madnlp_tpu/ipm/kernels.py``, the soft and
+robust restoration kernels (``get_F`` … ``populate_RR_nn``) included.
 
 Vector kernels are masked, fully vectorised torch functions returning
 tensors, read on the host by the caller.  They broadcast over a leading
@@ -89,9 +89,14 @@ def get_varphi_d(f, dl, du, lb_mask, ub_mask, dx, mu):
         - torch.where(lb_mask, mu / dl, 0.0)
         + torch.where(ub_mask, mu / du, 0.0)
     )
-    if term.ndim == 1:
-        return torch.dot(term, dx)
-    return (term * dx).sum(-1)
+    return _dot(term, dx)
+
+
+def _dot(a, b):
+    """Inner product over the last axis."""
+    if a.ndim == 1:
+        return torch.dot(a, b)
+    return (a * b).sum(-1)
 
 
 # -- residuals ---------------------------------------------------------------
@@ -399,3 +404,114 @@ def dual_inf_perturbation(px, llb_mask, uub_mask, mu, kappa_d):
     return px - torch.where(llb_mask, mu * kappa_d, 0.0) + torch.where(
         uub_mask, mu * kappa_d, 0.0
     )
+
+
+# -- soft/robust restoration kernels ----------------------------------------
+
+
+def get_F(c, f, zl, zu, jacl, dl, du, lb_mask, ub_mask, mu):
+    """Primal-dual error for soft restoration (kernels.jl:572-610)."""
+    mu = as_col(mu)
+    F1 = c.abs().sum(-1)
+    F2 = (f - zl + zu + jacl).abs().sum(-1)
+    okl = (dl >= 0) & (zl >= 0)
+    oku = (du >= 0) & (zu >= 0)
+    F3 = torch.where(lb_mask, torch.where(okl, (dl * zl - mu).abs(), INF),
+                     0.0).sum(-1)
+    # N.B. the reference has a typo here ((xu_r - xu_r)*zu_r, kernels.jl:606)
+    # making F4's compl term vanish; the JAX package and the port take the
+    # intended |du*zu - mu|
+    F4 = torch.where(ub_mask, torch.where(oku, (du * zu - mu).abs(), INF),
+                     0.0).sum(-1)
+    return F1 + F2 + F3 + F4
+
+
+def get_theta_R(c, p, n):
+    return (c - p + n).abs().sum(-1)
+
+
+def get_inf_pr_R(c, p, n):
+    return _amax(c - p + n)
+
+
+def get_inf_du_R(f_R, y, zl, zu, jacl, zp, zn, rho, sd):
+    a = _amax(f_R - zl + zu + jacl)
+    if y.shape[-1]:
+        a = torch.maximum(a, torch.maximum(_amax(rho - y - zp),
+                                           _amax(rho + y - zn)))
+    return a / sd
+
+
+def get_inf_compl_R(dl, du, zl, zu, lb_mask, ub_mask, pp, zp, nn, zn, mu_R, sc):
+    mu_R = as_col(mu_R)
+    a = _mmax(torch.abs(dl * zl - mu_R), lb_mask)
+    b = _mmax(torch.abs(du * zu - mu_R), ub_mask)
+    if pp.shape[-1]:
+        a = torch.maximum(a, torch.abs(pp * zp - mu_R).amax(-1))
+        b = torch.maximum(b, torch.abs(nn * zn - mu_R).amax(-1))
+    return torch.maximum(a, b) / sc
+
+
+def _ratio_min(v, dv, tau):
+    """min over dv < 0 of -v·τ/dv (+Inf where none)."""
+    return torch.where(dv < 0, -v * tau / dv, INF).amin(-1)
+
+
+def get_alpha_max_R(x, xl, xu, dx, lb_mask, ub_mask, pp, dpp, nn, dnn, tau_R):
+    a = get_alpha_max(x, xl, xu, dx, tau_R, lb_mask, ub_mask)
+    if pp.shape[-1]:
+        tau = as_col(tau_R)
+        a = torch.minimum(a, torch.minimum(_ratio_min(pp, dpp, tau),
+                                           _ratio_min(nn, dnn, tau)))
+    return a
+
+
+def get_alpha_z_R(zl, zu, dzl, dzu, lb_mask, ub_mask, zp, dzp, zn, dzn, tau_R):
+    a = get_alpha_z(zl, zu, dzl, dzu, tau_R, lb_mask, ub_mask)
+    if zp.shape[-1]:
+        tau = as_col(tau_R)
+        a = torch.minimum(a, torch.minimum(_ratio_min(zp, dzp, tau),
+                                           _ratio_min(zn, dzn, tau)))
+    return a
+
+
+def get_varphi_R(obj_val_R, dl, du, lb_mask, ub_mask, pp, nn, mu_R):
+    """The restoration problem's barrier function; +Inf outside the
+    interior."""
+    bad = (lb_mask & (dl < 0)).any(-1) | (ub_mask & (du < 0)).any(-1)
+    safe_l = torch.where(lb_mask & (dl > 0), dl, 1.0)
+    safe_u = torch.where(ub_mask & (du > 0), du, 1.0)
+    val = obj_val_R - mu_R * (torch.log(safe_l).sum(-1)
+                              + torch.log(safe_u).sum(-1))
+    if pp.shape[-1]:
+        bad = bad | (pp < 0).any(-1) | (nn < 0).any(-1)
+        val = val - mu_R * (torch.log(torch.where(pp > 0, pp, 1.0)).sum(-1)
+                            + torch.log(torch.where(nn > 0, nn, 1.0)).sum(-1))
+    return torch.where(bad, INF, val)
+
+
+def get_varphi_d_R(f_R, dl, du, lb_mask, ub_mask, dx, pp, nn, dpp, dnn, mu_R,
+                   rho):
+    mu = as_col(mu_R)
+    term = (
+        f_R
+        - torch.where(lb_mask, mu / dl, 0.0)
+        + torch.where(ub_mask, mu / du, 0.0)
+    )
+    out = _dot(term, dx)
+    if pp.shape[-1]:
+        out = out + _dot(rho - mu / pp, dpp) + _dot(rho - mu / nn, dnn)
+    return out
+
+
+def get_obj_val_R(p, n, D_R, x, x_ref, rho, zeta):
+    """ρ Σ(p + n) + ζ/2 ‖D_R (x - x_ref)‖²."""
+    val = rho * (p.sum(-1) + n.sum(-1))
+    return val + 0.5 * zeta * (D_R**2 * (x - x_ref) ** 2).sum(-1)
+
+
+def populate_RR_nn(c, mu, rho):
+    """Closed-form init of the n-slacks (kernels.jl:825-829)."""
+    mu = as_col(mu)
+    a = (mu - rho * c) / (2 * rho)
+    return a + torch.sqrt(a**2 + mu * c / (2 * rho))

@@ -2,13 +2,15 @@
 ``solve``, ``solve_batch``, ``batch_summary``, ``madnlp``,
 ``ExecutionStats`` and the Ipopt-format printers).
 
-The iteration runs as a host loop over device tensors, one regular step at
-a time; ``solve_batch`` runs B same-structure scenarios of a parametric
-sparse model in lock step (:mod:`.batch`).  The KKT system follows the
-JAX package's presets: dense-callback models default to the condensed
-dense system (Cholesky without equality rows, LDLᵀ with them), sparse
-models to the sparse system, banded where the ordering gives a narrow
-band and dense storage otherwise.  Entry points run on the card:
+The iteration runs as a host loop over device tensors, one step at a time
+of the three-phase state machine (regular, soft restoration, robust
+restoration: :mod:`.step`); a second ``solve`` warm-starts from the last
+state.  ``solve_batch`` runs B same-structure scenarios of a parametric
+sparse model in lock step (:mod:`.batch`), regular steps only.  The KKT
+system follows the JAX package's presets: dense-callback models default
+to the condensed dense system (Cholesky without equality rows, LDLᵀ with
+them), sparse models to the sparse system, banded where the ordering
+gives a narrow band and dense storage otherwise.  Entry points run on the card:
 ``device=None`` means ``"cuda"``, and without CUDA they raise; pass
 ``device="cpu"`` to run on the CPU.
 """
@@ -228,22 +230,33 @@ class MadNLPSolver:
 
     def solve(self, params=None, max_wall_time: Optional[float] = None,
               intermediate_callback=None) -> ExecutionStats:
-        """Solve from the model's initial point; ``params`` are a
-        parametric model's parameters (default: ``model.params``).
+        """Solve from the model's initial point, or warm-start a re-solve;
+        ``params`` are a parametric model's parameters (default:
+        ``model.params``).
+
+        A solver whose ``state`` is set and not INITIAL — after a solve, or
+        after ``utils.checkpoint.resume`` — warm-starts through
+        ``Kernel.reinitialize`` (the JAX package's rule): the primal
+        variables go back to x0, the duals, slacks and scaling are kept, and
+        the state takes the new ``params``.  Set ``state = None`` for a
+        cold solve.
 
         ``intermediate_callback(info: dict) -> bool`` is invoked once per
         IPM iteration; returning False aborts with USER_REQUESTED_STOP."""
-        if self.state is not None:
-            raise _later("warm start (re-solving a solved instance)")
         t0 = time.time()
         max_wt = max_wall_time if max_wall_time is not None else self.opts.max_wall_time
-        st = self.kernel.initialize(self._params(params))
-        self._init_time = time.time() - t0
-        self._print_init()
+        theta = self._params(params)
+        if self.state is not None and self.state.status != int(Status.INITIAL):
+            st = self.kernel.reinitialize(self.state, theta)
+        else:
+            st = self.kernel.initialize(theta)
+            self._init_time = time.time() - t0
+            self._print_init()
+        step = {int(Status.REGULAR): self.kernel.regular_step,
+                int(Status.RESTORE): self.kernel.restore_step,
+                int(Status.ROBUST): self.kernel.robust_step}
         status = st.status
         while status in _ACTIVE:
-            if status != int(Status.REGULAR):
-                raise _later(f"restoration (status {Status(status).name})")
             if intermediate_callback is not None:
                 info = {
                     "iter": st.k,
@@ -255,7 +268,7 @@ class MadNLPSolver:
                 if intermediate_callback(info) is False:
                     st.status = int(Status.USER_REQUESTED_STOP)
                     break
-            st = self.kernel.regular_step(st)
+            st = step[status](st)
             self._print_iter(st)
             status = st.status
             if time.time() - t0 > max_wt and status in _ACTIVE:
@@ -287,8 +300,9 @@ class MadNLPSolver:
 
         Returns the final :class:`BatchState` in the original lane order;
         summary arrays via :func:`batch_summary`.  A lane that needs soft
-        or robust restoration raises NotImplementedError (a later slice of
-        the port), as does ``sharding``."""
+        or robust restoration raises NotImplementedError (restoration
+        inside ``solve_batch`` is a later slice of the port), as does
+        ``sharding``."""
         if sharding is not None:
             raise _later("sharding= (a multi-device solve_batch)")
         if not getattr(self.kernel.kkt, "banded", False):
@@ -335,7 +349,8 @@ class MadNLPSolver:
                 st.status, (int(Status.RESTORE), int(Status.ROBUST))))
             if special.size:
                 i = special[0]
-                raise _later(f"restoration (lane {lane_ids[i]}, status "
+                raise _later(f"restoration inside solve_batch (lane "
+                             f"{lane_ids[i]}, status "
                              f"{Status(int(st.status[i])).name})")
         return st
 

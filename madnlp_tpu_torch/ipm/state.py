@@ -1,10 +1,12 @@
-"""Solver state of the PyTorch port — the regular-phase part of
-``madnlp_tpu/ipm/state.py:State``.
+"""Solver state of the PyTorch port — ``madnlp_tpu/ipm/state.py:State``
+without the quasi-Newton memory and the persisted KKT context.
 
 Vectors are float64 tensors on the solver's device; scalars (barrier,
 residuals, step sizes, regularization) are host floats and counters host
 ints, because the port's iteration makes its decisions on the host.  The
-state is updated in place by the step functions.
+state is updated in place by the step functions.  :class:`RRState` is the
+robust (ℓ1-penalty) restoration phase's part, ``State.RR``; the soft
+restoration's backups and error ``soft_F`` are fields of :class:`State`.
 
 :func:`state_from_arrays` builds a state from the JAX package's ``State``
 converted to numpy, so one iteration can be run in both packages from the
@@ -29,6 +31,49 @@ import torch
 from ..kkt.vec import KKTVec, kkt_zeros
 from .kernels import Filter, filter_init, filter_stack
 from .problem import Scaling
+
+
+@dataclasses.dataclass
+class RRState:
+    """Robust (ℓ1-penalty) restoration phase state (restoration.jl:1-37):
+    the p/n slacks of the constraint residual and their duals, the
+    proximal term's reference point and weights, the restoration barrier
+    μ_R and its own filter."""
+
+    f_R: torch.Tensor       # (nw,)
+    x_ref: torch.Tensor     # (nw,)
+    D_R: torch.Tensor       # (nw,)
+    pp: torch.Tensor        # (m,)
+    nn: torch.Tensor
+    zp: torch.Tensor
+    zn: torch.Tensor
+    dpp: torch.Tensor
+    dnn: torch.Tensor
+    dzp: torch.Tensor
+    dzn: torch.Tensor
+    pp_trial: torch.Tensor
+    nn_trial: torch.Tensor
+    filter: Filter
+    obj_val_R: float = 0.0
+    theta_ref: float = 0.0
+    obj_val_R_trial: float = 0.0
+    inf_pr_R: float = 0.0
+    inf_du_R: float = 0.0
+    inf_compl_R: float = 0.0
+    mu_R: float = 1.0
+    tau_R: float = 0.99
+    zeta: float = 1.0
+
+
+def rr_zeros(nw: int, m: int, filter_capacity: int, device) -> RRState:
+    def z(k):
+        return torch.zeros((k,), dtype=torch.float64, device=device)
+
+    return RRState(
+        f_R=z(nw), x_ref=z(nw), D_R=z(nw), pp=z(m), nn=z(m),
+        zp=z(m) + 1.0, zn=z(m) + 1.0, dpp=z(m), dnn=z(m), dzp=z(m),
+        dzn=z(m), pp_trial=z(m), nn_trial=z(m),
+        filter=filter_init(filter_capacity))
 
 
 @dataclasses.dataclass
@@ -90,6 +135,15 @@ class State:
     hess_cnt: int = 0
     status: int = 0
     scal: Scaling = None
+    # soft restoration (restore!): the primal-dual error and the regular
+    # iterate to return to when it switches to robust restoration
+    soft_F: float = 0.0
+    backup_x: torch.Tensor = None
+    backup_y: torch.Tensor = None
+    backup_c: torch.Tensor = None
+    # robust restoration
+    RR: RRState = None
+    rr_init_needed: bool = False   # ROBUST entered, restorer not set up yet
     theta: object = None    # the model's parameters (parametric models)
     # iteration-log snapshot taken at the reference's print_iter position:
     # k, obj, inf_pr, inf_du, inf_compl, mu, del_w, alpha, ir, ls, ftype,
@@ -112,6 +166,8 @@ def state_zeros(nw: int, m: int, jac: torch.Tensor, hess: torch.Tensor,
         d=kkt_zeros(nw, m, device), p=kkt_zeros(nw, m, device),
         mu=1e-1, tau=0.99, filter=filter_init(filter_capacity),
         scal=Scaling(1.0, torch.ones((m,), dtype=torch.float64, device=device)),
+        backup_x=z(nw), backup_y=z(m), backup_c=z(m),
+        RR=rr_zeros(nw, m, filter_capacity, device),
     )
 
 
@@ -131,12 +187,21 @@ def state_from_arrays(d: dict, device) -> State:
     converted to numpy.  Keys are the JAX field names; nested tuples use
     dotted keys: ``"d.xp"``…``"d.zu"``, ``"p.xp"``…, ``"filter.th"``,
     ``"filter.ph"``, ``"filter.count"``, ``"scal.obj_scale"``,
-    ``"scal.con_scale"``, and ``"log_row"``.  Other keys are ignored (the
-    restoration, quasi-Newton and persisted-context leaves belong to later
-    slices)."""
+    ``"scal.con_scale"``, and ``"log_row"``.  The restoration leaves
+    (``"backup_x"``, ``"backup_y"``, ``"backup_c"``, ``"soft_F"``,
+    ``"rr_init_needed"`` and ``"RR.<field>"``, ``"RR.filter.th"``…) are
+    read where present and zero otherwise.  Other keys are ignored (the
+    quasi-Newton and persisted-context leaves have no counterpart)."""
 
     def vec(a):
         return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
+
+    def filt(prefix):
+        return Filter(
+            np.asarray(d[f"{prefix}.th"], dtype=np.float64).copy(),
+            np.asarray(d[f"{prefix}.ph"], dtype=np.float64).copy(),
+            int(d[f"{prefix}.count"]),
+        )
 
     fields = {k: vec(d[k]) for k in _VECTORS}
     fields.update({k: float(d[k]) for k in _FLOATS})
@@ -144,15 +209,28 @@ def state_from_arrays(d: dict, device) -> State:
     for name in ("d", "p"):
         fields[name] = KKTVec(*(vec(d[f"{name}.{part}"])
                                 for part in KKTVec._fields))
-    fields["filter"] = Filter(
-        np.asarray(d["filter.th"], dtype=np.float64).copy(),
-        np.asarray(d["filter.ph"], dtype=np.float64).copy(),
-        int(d["filter.count"]),
-    )
+    fields["filter"] = filt("filter")
     fields["scal"] = Scaling(float(d["scal.obj_scale"]),
                              vec(d["scal.con_scale"]))
     fields["log_row"] = [float(v) for v in np.asarray(d["log_row"])]
-    return State(**fields)
+    st = State(**fields)
+    nw, m = st.x.shape[0], st.y.shape[0]
+    for k, size in (("backup_x", nw), ("backup_y", m), ("backup_c", m)):
+        setattr(st, k, vec(d[k]) if k in d else st.x.new_zeros(size))
+    st.soft_F = float(d.get("soft_F", 0.0))
+    st.rr_init_needed = bool(d.get("rr_init_needed", False))
+    st.RR = rr_zeros(nw, m, len(st.filter.th), device)
+    if "RR.pp" in d:
+        for f in dataclasses.fields(RRState):
+            cur = getattr(st.RR, f.name)
+            if f.name == "filter":
+                val = filt("RR.filter")
+            elif torch.is_tensor(cur):
+                val = vec(d[f"RR.{f.name}"])
+            else:
+                val = float(d[f"RR.{f.name}"])
+            setattr(st.RR, f.name, val)
+    return st
 
 
 @dataclasses.dataclass

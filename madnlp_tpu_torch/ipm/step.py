@@ -1,20 +1,28 @@
-"""The interior-point iteration — port of the regular phase of
-``madnlp_tpu/ipm/step.py:Kernel``.
+"""The interior-point iteration — port of ``madnlp_tpu/ipm/step.py:Kernel``.
 
-* ``initialize`` with least-squares duals (solver.jl:14-97);
+* ``initialize`` with least-squares duals (solver.jl:14-97), and
+  ``reinitialize`` for a warm start (solver.jl:99-117);
 * ``regular_step`` = one iteration of ``regular!`` (solver.jl:216-298):
   monotone barrier update, inertia-based δ regularization, filter line
-  search with second-order correction.
+  search with second-order correction;
+* ``restore_step`` = one iteration of soft restoration, ``restore!``
+  (solver.jl:300-411);
+* ``robust_step`` = one iteration of robust (ℓ1-penalty) restoration,
+  ``robust!`` (solver.jl:413-545), with its own barrier, right-hand side
+  and filter line search.
 
-Each ``lax.cond`` / ``while_loop`` of the JAX package becomes Python
-control flow over device tensors: the host reads the few scalars each
-decision needs (grouped into one read where the JAX code computes them
-together) and updates the :class:`State` in place.  Soft and robust
-restoration come in a later slice: a step that enters them leaves the
-status RESTORE / ROBUST, and the solver raises.
+The three-phase state machine is ``state.status`` (REGULAR / RESTORE /
+ROBUST), as in the JAX package.  Each ``lax.cond`` / ``while_loop`` of the
+JAX package becomes Python control flow over device tensors: the host
+reads the few scalars each decision needs (grouped into one read where
+the JAX code computes them together) and updates the :class:`State` in
+place.  The restoration phases factor through the same KKT system, and so
+the same kernels, as the regular phase.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -75,6 +83,40 @@ class Kernel:
     def _where_bound(self, mask):
         return torch.where(mask, 1.0, 0.0).to(torch.float64)
 
+    def _sd_sc(self, st: State):
+        p, o = self.prob, self.opts
+        sd = K.get_sd(st.y, st.zl, st.zu, self.lb, self.ub, p.m, p.nlb, p.nub,
+                      o.s_max)
+        sc = K.get_sc(st.zl, st.zu, self.lb, self.ub, p.nlb, p.nub, o.s_max)
+        return sd, sc
+
+    def _residuals(self, st: State, sd, sc):
+        """(inf_pr, inf_du, inf_compl) of the original problem, on the
+        device."""
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        return (K.get_inf_pr(st.c),
+                K.get_inf_du(st.f, st.zl, st.zu, st.jacl, sd),
+                K.get_inf_compl(dl, du_, st.zl, st.zu, self.lb, self.ub, 0.0,
+                                sc))
+
+    @staticmethod
+    def _log_row(st: State, mu, inf_pr, inf_du, inf_compl, is_resto):
+        return [float(st.k), st.obj_val, inf_pr, inf_du, inf_compl, mu,
+                st.del_w, st.alpha, float(st.last_ir), float(st.l_cnt),
+                float(st.ftype), 1.0 if is_resto else 0.0]
+
+    def _x0(self, theta):
+        """The model's initial primal point, fixed variables at their
+        value."""
+        p = self.prob
+        if getattr(p.model, "x0_fn", None) is not None:
+            x0 = p.model.x0_fn(theta)
+        else:
+            x0 = torch.as_tensor(p.model.x0, device=p.device)
+        if p.fixed_mask.any():
+            x0 = torch.where(p.t.fixed, p.t.xl_fixed, x0)
+        return x0
+
     def eval_obj(self, st, w):
         return self.prob.eval_obj(st.scal, w, st.theta)
 
@@ -85,12 +127,20 @@ class Kernel:
     # initialization (solver.jl:14-77 + nlpmodels.jl:593-636)
     # ------------------------------------------------------------------
 
+    def zero_state(self, theta=None) -> State:
+        """A zero state of this problem's shapes, holding ``theta`` (the
+        template a checkpoint loads into)."""
+        p = self.prob
+        st = state_zeros(p.nw, p.m, p.jac_template(), p.hess_template(),
+                         self.opts.filter_capacity, p.device)
+        st.theta = theta
+        return st
+
     def initialize(self, theta=None) -> State:
         """``theta``: the model's parameters (a tensor; parametric models)."""
         p, o = self.prob, self.opts
         dev = p.device
-        st = state_zeros(p.nw, p.m, p.jac_template(), p.hess_template(),
-                         o.filter_capacity, dev)
+        st = self.zero_state()
         lb, ub = self.lb, self.ub
 
         xl = torch.as_tensor(p.xl0, device=dev)
@@ -103,12 +153,7 @@ class Kernel:
             xu = torch.where(er, xu2, xu)
         xl, xu = K.set_initial_bounds(xl, xu, lb, ub, o.bound_relax_factor)
 
-        if getattr(p.model, "x0_fn", None) is not None:
-            x0 = p.model.x0_fn(theta)
-        else:
-            x0 = torch.as_tensor(p.model.x0, device=dev)
-        if p.fixed_mask.any():
-            x0 = torch.where(p.t.fixed, p.t.xl_fixed, x0)
+        x0 = self._x0(theta)
         n = p.n
         xv = K.initialize_variables(x0, xl[:n], xu[:n], lb[:n], ub[:n],
                                     o.bound_push, o.bound_fac)
@@ -168,6 +213,44 @@ class Kernel:
             if not ok:
                 status = code
         st.status = int(status)
+        return st
+
+    def reinitialize(self, st: State, theta=None) -> State:
+        """Warm start / re-solve (reference ``reinitialize!``,
+        solver.jl:99-117): reset the primal variables to x0 keeping the
+        slacks, the duals, the bounds and the scaling, re-evaluate at the
+        new parameters ``theta``, reset the filter and the barrier.  The
+        returned state carries ``theta``: the JAX package evaluates the
+        new point at ``theta`` but keeps the old parameters in its state,
+        so its later iterations re-solve the old instance; the port does
+        not copy that."""
+        p, o = self.prob, self.opts
+        x = st.x.clone()
+        x[: p.n] = self._x0(theta)
+        st.x, st.theta = x, theta
+        obj = p.eval_obj(st.scal, x, theta)
+        st.f = p.eval_grad(st.scal, x, theta)
+        st.c = p.eval_cons(st.scal, x, theta)
+        st.jac = p.eval_jac(st.scal, x, theta)
+        st.jacl = self.kkt.jtprod(st.jac, st.y)
+        st.obj_cnt += 1
+        st.grad_cnt += 1
+        st.con_cnt += 1
+        st.jac_cnt += 1
+        st.hess = p.eval_lag_hess(st.scal, x, st.y, theta)
+        st.hess_cnt += 1
+        theta_c, st.obj_val = torch.stack([K.get_theta(st.c),
+                                           obj.to(torch.float64)]).tolist()
+        st.theta_max = 1e4 * max(1.0, theta_c)
+        st.theta_min = 1e-4 * max(1.0, theta_c)
+        mu0 = o.barrier_options.mu_init
+        st.mu, st.tau = mu0, max(o.tau_min, 1.0 - mu0)
+        st.filter = K.filter_reset(st.filter, st.theta_max)
+        st.status = int(S.REGULAR)
+        st.k = st.acceptable_cnt = st.restoration_fail_count = 0
+        st.unsuccessful_iterate = 0
+        st.del_w = st.del_w_last = 0.0
+        st.rr_init_needed = False
         return st
 
     def _least_squares_duals(self, st: State):
@@ -232,14 +315,22 @@ class Kernel:
             zu=torch.where(self.ub, du_ * st.zu - mu, 0.0),
         )
 
-    def _factorize(self, st: State, del_w, del_c):
-        """build_kkt! + factorize! with total regularization δw, δc."""
+    def _factorize(self, st: State, del_w, del_c, rr: bool = False):
+        """build_kkt! + factorize! with total regularization δw, δc; with
+        ``rr``, the robust-restoration system: the proximal weight ζ·D_R²
+        on the primal diagonal and -p/z_p - n/z_n on the dual one."""
         o, p = self.opts, self.prob
         dl, du_ = self.slacks(st.x, st.xl, st.xu)
-        reg = p.zeros(p.nw) + o.default_primal_regularization + del_w
-        du_diag = p.zeros(p.m) - o.default_dual_regularization - del_c
+        if rr:
+            R = st.RR
+            reg = o.default_primal_regularization + R.zeta * R.D_R**2 + del_w
+            du_diag = (-o.default_dual_regularization - R.pp / R.zp
+                       - R.nn / R.zn - del_c)
+        else:
+            reg = p.zeros(p.nw) + o.default_primal_regularization + del_w
+            du_diag = p.zeros(p.m) - o.default_dual_regularization - del_c
         return self.kkt.build_and_factorize(
-            st.hess, st.jac, reg, du_diag, dl, du_, st.zl, st.zu)
+            st.hess, st.jac, reg, du_diag, dl, du_, st.zl, st.zu, rr=rr)
 
     def _next_del_w(self, n_trial, del_w, del_w_last):
         """The δ_w escalation ladder (solver.jl:639-649)."""
@@ -251,17 +342,23 @@ class Kernel:
         return del_w * (o.perturb_inc_fact_first if del_w_last == 0.0
                         else o.perturb_inc_fact)
 
-    def inertia_correction(self, st: State, p_rhs: KKTVec):
-        """Returns (ctx, d, success); counters and δs land in ``st``."""
+    def inertia_correction(self, st: State, p_rhs: KKTVec, rr: bool = False):
+        """Returns (ctx, d, success); counters and δs land in ``st``.
+        ``rr``: the robust-restoration system, whose solves keep the exact
+        refinement tolerance and whose δ_c follows μ_R."""
         o = self.opts
+        # restoration solves rank-deficient geometry where step accuracy
+        # decides feasibility recovery: keep the exact tolerance
+        mu_refine = None if rr else st.mu
+        mu = st.RR.mu_R if rr else st.mu
 
         def attempt(del_w, del_c):
-            ctx = self._factorize(st, del_w, del_c)
+            ctx = self._factorize(st, del_w, del_c, rr=rr)
             pos, nzero, neg = self.kkt.inertia(ctx)
             ok_inertia = self.kkt.is_inertia_correct(pos, nzero, neg)
             # the solve runs (and is counted) whatever the inertia, as in
             # the JAX package
-            d, solved, iters = self.kkt.solve_refine(ctx, p_rhs, mu=st.mu)
+            d, solved, iters = self.kkt.solve_refine(ctx, p_rhs, mu=mu_refine)
             st.factorization_cnt += 1
             st.backsolve_cnt += iters
             st.last_ir = iters
@@ -273,7 +370,7 @@ class Kernel:
             del_w = self._next_del_w(n_trial, del_w, st.del_w_last)
             # δ_c on rank-deficient Jacobian (num_zero != 0)
             del_c = (o.jacobian_regularization_value
-                     * st.mu**o.jacobian_regularization_exponent
+                     * mu**o.jacobian_regularization_exponent
                      if nzero != 0 else 0.0)
             n_trial += 1
             if del_w > o.max_hessian_perturbation:
@@ -471,20 +568,11 @@ class Kernel:
             st.jac_cnt += 1
         st.jacl = self.kkt.jtprod(st.jac, st.y)
 
-        sd = K.get_sd(st.y, st.zl, st.zu, self.lb, self.ub, p.m, p.nlb, p.nub,
-                      o.s_max)
-        sc = K.get_sc(st.zl, st.zu, self.lb, self.ub, p.nlb, p.nub, o.s_max)
-        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        sd, sc = self._sd_sc(st)
         sc, inf_pr, inf_du, inf_compl = torch.stack([
-            sc,
-            K.get_inf_pr(st.c),
-            K.get_inf_du(st.f, st.zl, st.zu, st.jacl, sd),
-            K.get_inf_compl(dl, du_, st.zl, st.zu, self.lb, self.ub, 0.0, sc),
-        ]).tolist()
+            sc, *self._residuals(st, sd, sc)]).tolist()
         st.inf_pr, st.inf_du, st.inf_compl = inf_pr, inf_du, inf_compl
-        st.log_row = [float(st.k), st.obj_val, inf_pr, inf_du, inf_compl,
-                      st.mu, st.del_w, st.alpha, float(st.last_ir),
-                      float(st.l_cnt), float(st.ftype), 0.0]
+        st.log_row = self._log_row(st, st.mu, inf_pr, inf_du, inf_compl, False)
 
         # termination (solver.jl:239-246)
         inf_total = max(inf_pr, inf_du, inf_compl)
@@ -513,14 +601,26 @@ class Kernel:
         st.d, st.p = d, p_rhs
         if not ok:
             # solver.jl:646-649: k += 1 before switching to robust
-            # restoration (which the solver does not run in this slice)
+            # restoration
             st.status = int(S.ROBUST)
             st.k += 1
+            st.rr_init_needed = True
             return st
 
         self.filter_line_search(st, ctx, d)
+        if st.status == S.RESTORE:
+            # stash the backups and set soft restoration up
+            # (solver.jl:300-322)
+            dl, du_ = self.slacks(st.x, st.xl, st.xu)
+            st.soft_F = float(K.get_F(st.c, st.f, st.zl, st.zu, st.jacl, dl,
+                                      du_, self.lb, self.ub, st.mu))
+            st.del_w = 0.0
+            st.backup_x, st.backup_y, st.backup_c = st.x, st.y, st.c
+            st.alpha_z = 0.0
+            st.ftype = K.FTYPE_RESTORE
+            return st
         if st.status != S.LINESEARCH_SUCCEEDED:
-            return st      # RESTORE, second chance (REGULAR) or an exit
+            return st      # second chance (REGULAR) or an exit
         x = st.x_trial
         y = st.y + st.alpha * d.y
         zl = st.zl + st.alpha_z * d.zl
@@ -535,4 +635,386 @@ class Kernel:
         st.grad_cnt += 1
         st.k += 1
         st.status = int(S.REGULAR)
+        return st
+
+    # ------------------------------------------------------------------
+    # restore! — soft restoration, one iteration (solver.jl:300-411)
+    # ------------------------------------------------------------------
+
+    def restore_step(self, st: State) -> State:
+        o, p = self.opts, self.prob
+        lb, ub = self.lb, self.ub
+        d = st.d
+        alpha_max, alpha_z = torch.stack([
+            K.get_alpha_max(st.x, st.xl, st.xu, d.xp, st.tau, lb, ub),
+            K.get_alpha_z(st.zl, st.zu, d.zl, d.zu, st.tau, lb, ub),
+        ]).tolist()
+        alpha = min(alpha_max, alpha_z)
+        x = st.x + alpha * d.xp
+        y = st.y + alpha * d.y
+        zl = st.zl + alpha * d.zl
+        zu = st.zu + alpha * d.zu
+        c = self.eval_cons(st, x)
+        f = p.eval_grad(st.scal, x, st.theta)
+        obj = self.eval_obj(st, x)
+        if not o.jacobian_constant:
+            st.jac = p.eval_jac(st.scal, x, st.theta)
+            st.jac_cnt += 1
+        jacl = self.kkt.jtprod(st.jac, y)
+        st.con_cnt += 1
+        st.grad_cnt += 1
+        st.obj_cnt += 1
+        dl, du_ = self.slacks(x, st.xl, st.xu)
+        obj, F_trial = torch.stack([
+            obj.to(torch.float64),
+            K.get_F(c, f, zl, zu, jacl, dl, du_, lb, ub, st.mu)]).tolist()
+        st.x, st.y, st.zl, st.zu = x, y, zl, zu
+        st.c, st.f, st.jacl = c, f, jacl
+        st.obj_val, st.alpha = obj, alpha
+
+        if F_trial > o.soft_resto_pderror_reduction_factor * st.soft_F:
+            # revert to the backup iterate (solver.jl:362-367)
+            st.x, st.y, st.c = st.backup_x, st.backup_y, st.backup_c
+            st.status = int(S.ROBUST)
+            st.rr_init_needed = True
+            return st
+
+        st.xl, st.xu = K.adjust_boundary(st.x, st.xl, st.xu, lb, ub, st.mu)
+        st.soft_F = F_trial
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        sd, sc = self._sd_sc(st)
+        theta, varphi, inf_pr, inf_du, inf_compl, icm = torch.stack([
+            K.get_theta(st.c),
+            K.get_varphi(st.obj_val, dl, du_, lb, ub, st.mu),
+            *self._residuals(st, sd, sc),
+            K.get_inf_compl(dl, du_, st.zl, st.zu, lb, ub, st.mu, sc),
+        ]).tolist()
+        st.k += 1
+        if K.is_filter_acceptable(st.filter, theta, varphi):
+            st.status = int(S.REGULAR)
+            return st
+        if st.k >= o.max_iter:
+            st.status = int(S.MAXIMUM_ITERATIONS_EXCEEDED)
+            return st
+
+        st.t_cnt += 1
+        st.inf_pr, st.inf_du, st.inf_compl = inf_pr, inf_du, inf_compl
+        st.inf_compl_mu = icm
+        st.log_row = self._log_row(st, st.mu, inf_pr, inf_du, inf_compl, False)
+        # Ipopt-style original-NLP convergence check inside soft
+        # restoration (the JAX package's, absent in the reference's
+        # restore!): if the original KKT error already meets tol, the exit
+        # is success, not restoration churn
+        nlp_converged = max(inf_pr, inf_du, inf_compl) <= o.tol
+        if not o.hessian_constant:
+            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta)
+            st.hess_cnt += 1
+        p_rhs = self._aug_rhs(st, st.c, st.mu)
+        ctx = self._factorize(st, 0.0, 0.0)
+        # restoration solves keep the exact refinement tolerance
+        st.d, _, iters = self.kkt.solve_refine(ctx, p_rhs, mu=None)
+        st.p = p_rhs
+        st.factorization_cnt += 1
+        st.backsolve_cnt += iters
+        st.last_ir = iters
+        st.ftype = K.FTYPE_F
+        st.status = int(S.SOLVE_SUCCEEDED if nlp_converged else S.RESTORE)
+        return st
+
+    # ------------------------------------------------------------------
+    # robust! — ℓ1-penalty restoration, one iteration (solver.jl:413-545)
+    # ------------------------------------------------------------------
+
+    def _init_robust_restorer(self, st: State) -> None:
+        """initialize_robust_restorer! (restoration.jl:39-75)."""
+        o = self.opts
+        rho = o.rho
+        c = st.c
+        R = st.RR
+        theta_ref, c_max = torch.stack([K.get_theta(c),
+                                        K.get_inf_pr(c)]).tolist()
+        mu_R = max(st.mu, c_max)
+        R.x_ref = st.x
+        R.theta_ref = theta_ref
+        R.D_R = torch.clamp_max(1.0 / torch.clamp_min(st.x.abs(), 1e-300), 1.0)
+        R.mu_R = mu_R
+        R.tau_R = max(o.tau_min, 1.0 - mu_R)
+        R.zeta = math.sqrt(mu_R)
+        R.nn = K.populate_RR_nn(c, mu_R, rho)
+        R.pp = c + R.nn
+        R.zp = mu_R / R.pp
+        R.zn = mu_R / R.nn
+        R.obj_val_R = float(K.get_obj_val_R(R.pp, R.nn, R.D_R, st.x, R.x_ref,
+                                            rho, R.zeta))
+        R.f_R = torch.zeros_like(st.x)
+        R.filter = K.filter_reset(R.filter, st.theta_max)
+        st.y = torch.zeros_like(st.y)
+        st.zl = torch.where(self.lb, torch.clamp_max(st.zl, rho), 0.0)
+        st.zu = torch.where(self.ub, torch.clamp_max(st.zu, rho), 0.0)
+        st.t_cnt = 0
+        st.del_w = 0.0
+        st.rr_init_needed = False
+
+    def _update_monotone_RR(self, st: State, sc) -> None:
+        """The restoration barrier's monotone decrease (barrier.jl:39-88)."""
+        o = self.opts
+        bo = o.barrier_options
+        R = st.RR
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        mu_R, tau_R, zeta, filt = R.mu_R, R.tau_R, R.zeta, R.filter
+        while True:
+            icm = float(K.get_inf_compl_R(dl, du_, st.zl, st.zu, self.lb,
+                                          self.ub, R.pp, R.zp, R.nn, R.zn,
+                                          mu_R, sc))
+            err = max(R.inf_pr_R, R.inf_du_R, icm)
+            if not (mu_R >= o.mu_min and err <= o.barrier_tol_factor * mu_R):
+                break
+            mu_R = K.get_mu(mu_R, o.mu_min, bo.mu_linear_decrease_factor,
+                            bo.mu_superlinear_decrease_power, o.tol)
+            tau_R = max(o.tau_min, 1.0 - mu_R)
+            zeta = math.sqrt(mu_R)
+            filt = K.filter_reset(filt, st.theta_max)
+        R.mu_R, R.tau_R, R.zeta, R.filter = mu_R, tau_R, zeta, filt
+
+    def _aug_rhs_RR(self, st: State) -> KKTVec:
+        """set_aug_rhs_RR! (kernels.jl:133-158)."""
+        rho = self.opts.rho
+        R = st.RR
+        mu = R.mu_R
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        px = -R.f_R + st.zl - st.zu - st.jacl
+        py = (-st.c + R.pp - R.nn
+              + (mu - (rho - st.y) * R.pp) / R.zp
+              - (mu - (rho + st.y) * R.nn) / R.zn)
+        return KKTVec(
+            xp=px,
+            y=py,
+            zl=torch.where(self.lb, mu - dl * st.zl, 0.0),
+            zu=torch.where(self.ub, du_ * st.zu - mu, 0.0),
+        )
+
+    def filter_line_search_RR(self, st: State) -> State:
+        """The restoration problem's filter line search
+        (line_search.jl:129-222): sets the trial point (with the trial p/n
+        slacks), alpha, ftype and the RR filter in ``st``, and ``status``
+        to LINESEARCH_SUCCEEDED / RESTORATION_FAILED / REGULAR (second
+        chance) / SOLVED_TO_ACCEPTABLE_LEVEL /
+        SEARCH_DIRECTION_BECOMES_TOO_SMALL."""
+        o, p = self.opts, self.prob
+        eps = self.eps
+        lb, ub = self.lb, self.ub
+        R, d = st.RR, st.d
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        (theta_R, varphi_R, varphi_d_R, alpha_max, alpha_z,
+         rel_norm) = torch.stack([
+            K.get_theta_R(st.c, R.pp, R.nn),
+            K.get_varphi_R(R.obj_val_R, dl, du_, lb, ub, R.pp, R.nn, R.mu_R),
+            K.get_varphi_d_R(R.f_R, dl, du_, lb, ub, d.xp, R.pp, R.nn, R.dpp,
+                             R.dnn, R.mu_R, o.rho),
+            K.get_alpha_max_R(st.x, st.xl, st.xu, d.xp, lb, ub, R.pp, R.dpp,
+                              R.nn, R.dnn, R.tau_R),
+            K.get_alpha_z_R(st.zl, st.zu, d.zl, d.zu, lb, ub, R.zp, R.dzp,
+                            R.zn, R.dzn, R.tau_R),
+            K.get_rel_search_norm(st.x, d.xp),
+        ]).tolist()
+        alpha_min = K.get_alpha_min(
+            theta_R, varphi_d_R, st.theta_min, o.gamma_theta, o.gamma_phi,
+            o.alpha_min_frac, o.delta, o.s_theta, o.s_phi,
+        )
+        small_search_norm = rel_norm < 10 * eps
+        switching = K.is_switching(varphi_d_R, alpha_max, o.s_phi, o.delta,
+                                   theta_R, o.s_theta)
+
+        st.l_cnt = 1
+        alpha = alpha_max
+        while True:
+            x_t = st.x + alpha * d.xp
+            pp_t = R.pp + alpha * R.dpp
+            nn_t = R.nn + alpha * R.dnn
+            obj_R_t = K.get_obj_val_R(pp_t, nn_t, R.D_R, x_t, R.x_ref, o.rho,
+                                      R.zeta)
+            c_t = self.eval_cons(st, x_t)
+            st.con_cnt += 1
+            dl_t, du_t = self.slacks(x_t, st.xl, st.xu)
+            obj_R_t, th_t, ph_t = torch.stack([
+                obj_R_t, K.get_theta_R(c_t, pp_t, nn_t),
+                K.get_varphi_R(obj_R_t, dl_t, du_t, lb, ub, pp_t, nn_t,
+                               R.mu_R),
+            ]).tolist()
+            st.x_trial, st.c_trial = x_t, c_t
+            R.pp_trial, R.nn_trial, R.obj_val_R_trial = pp_t, nn_t, obj_R_t
+            armijo = K.is_armijo(ph_t, varphi_R, o.eta_phi, alpha, varphi_d_R)
+            ftype = K.get_ftype(
+                R.filter, theta_R, th_t, varphi_R, ph_t, switching, armijo,
+                st.theta_min, o.obj_max_inc, o.gamma_theta, o.gamma_phi,
+                p.has_constraints, eps,
+            )
+            accept_f = ftype in (K.FTYPE_F, K.FTYPE_H)
+            if accept_f:
+                st.ftype = ftype
+            if accept_f or small_search_norm:
+                code = 0
+                break
+            alpha_next = alpha / 2.0
+            alpha = alpha_next
+            if alpha_next < alpha_min:
+                rfc = st.restoration_fail_count + 1
+                st.restoration_fail_count = rfc
+                if rfc >= 4:
+                    code = S.RESTORATION_FAILED
+                else:
+                    # second chance: reset the duals and the filter
+                    st.y = torch.zeros_like(st.y)
+                    st.zl = self._where_bound(lb)
+                    st.zu = self._where_bound(ub)
+                    st.filter = K.filter_reset(st.filter, st.theta_max)
+                    st.k += 1
+                    st.t_cnt += 1
+                    code = S.REGULAR
+                break
+            if alpha_next < eps * 10:
+                code = (S.SOLVED_TO_ACCEPTABLE_LEVEL if st.acceptable_cnt > 0
+                        else S.SEARCH_DIRECTION_BECOMES_TOO_SMALL)
+                break
+            st.l_cnt += 1
+        st.alpha, st.alpha_z = alpha, alpha_z
+
+        if code != 0:
+            st.status = int(code)
+            return st
+        if (not switching) or (not armijo):
+            R.filter = K.filter_augment(R.filter, th_t, ph_t, o.gamma_theta)
+        st.status = int(S.LINESEARCH_SUCCEEDED)
+        return st
+
+    def robust_step(self, st: State) -> State:
+        o, p = self.opts, self.prob
+        lb, ub = self.lb, self.ub
+        if st.rr_init_needed:
+            self._init_robust_restorer(st)
+        if not o.jacobian_constant:
+            st.jac = p.eval_jac(st.scal, st.x, st.theta)
+            st.jac_cnt += 1
+        st.jacl = self.kkt.jtprod(st.jac, st.y)
+
+        R = st.RR
+        sd, sc = self._sd_sc(st)
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        (sc, inf_pr, inf_du, inf_compl, inf_pr_R, inf_du_R,
+         inf_compl_R) = torch.stack([
+            sc, *self._residuals(st, sd, sc),
+            K.get_inf_pr_R(st.c, R.pp, R.nn),
+            K.get_inf_du_R(R.f_R, st.y, st.zl, st.zu, st.jacl, R.zp, R.zn,
+                           o.rho, sd),
+            K.get_inf_compl_R(dl, du_, st.zl, st.zu, lb, ub, R.pp, R.zp, R.nn,
+                              R.zn, 0.0, sc),
+        ]).tolist()
+        st.inf_pr, st.inf_du, st.inf_compl = inf_pr, inf_du, inf_compl
+        R.inf_pr_R, R.inf_du_R, R.inf_compl_R = inf_pr_R, inf_du_R, inf_compl_R
+        st.log_row = self._log_row(st, R.mu_R, inf_pr_R, inf_du_R,
+                                   inf_compl_R, True)
+
+        status = S.ROBUST
+        if st.k >= o.max_iter:
+            status = S.MAXIMUM_ITERATIONS_EXCEEDED
+        # Ipopt-style original-NLP convergence check inside robust
+        # restoration (the JAX package's, absent in the reference): if the
+        # iterate satisfies the original KKT conditions to tol, the run is
+        # a success whatever the restoration bookkeeping says
+        if max(inf_pr, inf_du, inf_compl) <= o.tol:
+            status = S.SOLVE_SUCCEEDED
+        st.status = int(status)
+
+        # The restoration problem is solved (err_R <= tol, solver.jl:445).
+        # That certifies local infeasibility only if the point violates
+        # the constraints; at an (almost) feasible point the JAX package
+        # first recovers least-squares multipliers (robust restoration
+        # zeroed y at entry) and reports success if the original KKT
+        # conditions then hold, RESTORATION_FAILED otherwise.
+        if (max(inf_pr_R, inf_du_R, inf_compl_R) <= o.tol
+                and status == S.ROBUST):
+            if inf_pr > o.tol:
+                st.status = int(S.INFEASIBLE_PROBLEM_DETECTED)
+                return st
+            y_new = self._least_squares_duals(st)
+            jacl = self.kkt.jtprod(st.jac, y_new)
+            y_old, jacl_old = st.y, st.jacl
+            st.y, st.jacl = y_new, jacl
+            sd2, sc2 = self._sd_sc(st)
+            res = torch.stack(self._residuals(st, sd2, sc2)).tolist()
+            if max(res) <= o.tol:
+                st.inf_pr, st.inf_du, st.inf_compl = res
+                st.status = int(S.SOLVE_SUCCEEDED)
+            else:
+                st.y, st.jacl = y_old, jacl_old
+                st.status = int(S.RESTORATION_FAILED)
+            return st
+        if status != S.ROBUST:
+            return st
+
+        self._update_monotone_RR(st, sc)
+        if not o.hessian_constant:
+            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta,
+                                      is_resto=True)
+            st.hess_cnt += 1
+        p_rhs = self._aug_rhs_RR(st)
+        st.p = p_rhs
+        _, d, ok = self.inertia_correction(st, p_rhs, rr=True)
+        st.d = d
+        if not ok:
+            st.status = int(S.RESTORATION_FAILED)
+            return st
+
+        # finish_aug_solve_RR (kernels.jl:251-257)
+        rho, mu = o.rho, R.mu_R
+        R.dzp = rho - st.y - d.y - R.zp
+        R.dzn = rho + st.y + d.y - R.zn
+        R.dpp = -R.pp + mu / R.zp - (R.pp / R.zp) * R.dzp
+        R.dnn = -R.nn + mu / R.zn - (R.nn / R.zn) * R.dzn
+        self.filter_line_search_RR(st)
+        if st.status != S.LINESEARCH_SUCCEEDED:
+            return st
+
+        x = st.x_trial
+        y = st.y + st.alpha * d.y
+        zl = st.zl + st.alpha_z * d.zl
+        zu = st.zu + st.alpha_z * d.zu
+        zp = R.zp + st.alpha_z * R.dzp
+        zn = R.zn + st.alpha_z * R.dzn
+        pp, nn = R.pp_trial, R.nn_trial
+        mu_R = R.mu_R
+        R.f_R = R.zeta * R.D_R**2 * (x - R.x_ref)
+        dl, du_ = self.slacks(x, st.xl, st.xu)
+        st.zl = K.reset_bound_dual(zl, dl, lb, mu_R, o.kappa_sigma)
+        st.zu = K.reset_bound_dual(zu, du_, ub, mu_R, o.kappa_sigma)
+        pp_safe = torch.where(pp > 0, pp, 1.0)
+        nn_safe = torch.where(nn > 0, nn, 1.0)
+        R.zp = torch.maximum(
+            torch.minimum(zp, o.kappa_sigma * mu_R / pp_safe),
+            mu_R / (o.kappa_sigma * pp_safe))
+        R.zn = torch.maximum(
+            torch.minimum(zn, o.kappa_sigma * mu_R / nn_safe),
+            mu_R / (o.kappa_sigma * nn_safe))
+        R.pp, R.nn = pp, nn
+        R.obj_val_R = R.obj_val_R_trial
+        st.xl, st.xu = K.adjust_boundary(x, st.xl, st.xu, lb, ub, st.mu)
+        obj = self.eval_obj(st, x)
+        st.f = p.eval_grad(st.scal, x, st.theta)
+        st.obj_cnt += 1
+        st.grad_cnt += 1
+        st.x, st.y, st.c = x, y, st.c_trial
+        # exit check (solver.jl:509-536)
+        dl, du_ = self.slacks(x, st.xl, st.xu)
+        obj, theta, varphi = torch.stack([
+            obj.to(torch.float64), K.get_theta(st.c),
+            K.get_varphi(obj, dl, du_, lb, ub, st.mu)]).tolist()
+        st.obj_val = obj
+        st.k += 1
+        st.t_cnt += 1
+        if (K.is_filter_acceptable(st.filter, theta, varphi)
+                and theta <= o.required_infeasibility_reduction * R.theta_ref):
+            st.y = self._least_squares_duals(st)
+            st.status = int(S.REGULAR)
+        else:
+            st.status = int(S.ROBUST)
         return st

@@ -48,8 +48,6 @@ class DenseCondensedKKT(DenseKKT):
 
     def build_and_factorize(self, hess, jac, reg, du_diag, dl, du_, zl, zu,
                             rr: bool = False, active=None, prev=None):
-        if rr:
-            raise _later("restoration")
         if active is not None:
             raise _later("batched dense KKT storage")
         p = self.prob

@@ -228,9 +228,10 @@ class SparseKKT(DenseKKT):
                             rr: bool = False, active=None, prev=None):
         """Assemble and factor.  For a batch, ``active`` (numpy bool (B,))
         selects the lanes to factor and ``prev`` (a batched context or
-        None) supplies the other lanes' factor and diagonals."""
-        if rr:
-            raise _later("restoration")
+        None) supplies the other lanes' factor and diagonals.  ``rr`` marks
+        the robust-restoration system, whose terms arrive in ``reg`` and
+        ``du_diag``; only HYKKT, which the port does not have yet, reads
+        it."""
         pr_diag, du_diag = self.aug_diagonals(reg, du_diag, dl, du_, zl, zu)
         if not self.banded:
             if active is not None:

@@ -2,10 +2,8 @@
 ``madnlp_tpu/models/instances/suite.py`` (the pathological models of
 ``lib/MadNLPTests/src/MadNLPTests.jl:112-456`` and ``Instances/nls.jl``).
 
-The instances whose solve in the JAX package never enters restoration are
-here: ``lootsma``, ``nls``, ``unbounded``, ``lp_issue75`` and
-``bound_qp``.  ``eigmina`` and ``infeasible`` enter feasibility
-restoration and come with it, in a later slice of the port.
+Every model of the JAX package's suite is here; ``eigmina`` and
+``infeasible`` take the solver through feasibility restoration.
 """
 
 from __future__ import annotations
@@ -47,6 +45,35 @@ LOOTSMA_SOLUTION = np.array([0.07415998565403112, 2.9848713863700236, 4.00003041
 LOOTSMA_MULTIPLIERS = np.array([-2.000024518601535, -2.0000305441119535])
 
 
+def eigmina(n: int = 101) -> DenseNLPModel:
+    """101-variable minimal-eigenvalue NLP (MadNLPTests.jl:200-332):
+    min x_n s.t. ||x_{1:n-1}||² = 1, x_i x_n = i x_i."""
+    nm1 = n - 1
+
+    def obj(x):
+        return x[nm1]
+
+    def cons(x):
+        v = x[:nm1]
+        sphere = torch.dot(v, v) - 1.0
+        bilinear = v * x[nm1] - torch.arange(1, n, dtype=x.dtype,
+                                             device=x.device) * v
+        return torch.cat([sphere[None], bilinear])
+
+    return DenseNLPModel(
+        n=n,
+        m=n,
+        obj=obj,
+        cons=cons,
+        x0=np.full(n, 0.1),
+        lvar=np.full(n, -1.0),
+        uvar=np.full(n, 1.0),
+        lcon=np.zeros(n),
+        ucon=np.zeros(n),
+        name="eigmina",
+    )
+
+
 def nls() -> DenseNLPModel:
     """Bound-constrained nonlinear least squares (Instances/nls.jl):
     min ½‖F(x)‖², F = (x₁-1, 10(x₂-x₁²)), 0 <= x <= 1."""
@@ -63,6 +90,22 @@ def nls() -> DenseNLPModel:
         lvar=[0.0, 0.0],
         uvar=[1.0, 1.0],
         name="nls",
+    )
+
+
+def infeasible() -> DenseNLPModel:
+    """MadNLPTests `infeasible`: min sum((x-2)²) s.t. x₁ >= 1 (bound),
+    x₁ <= -1 (constraint)."""
+    return create_model(
+        obj=lambda x: torch.sum((x - 2.0) ** 2),
+        n=2,
+        x0=[0.0, 0.0],
+        cons=lambda x: x[0:1],
+        m=1,
+        lvar=[1.0, -np.inf],
+        lcon=[-np.inf],
+        ucon=[-1.0],
+        name="infeasible",
     )
 
 

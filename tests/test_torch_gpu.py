@@ -694,3 +694,97 @@ def test_fused_kernels_are_one_device_launch_each():
     assert sum("cluster_fused_solve_kernel" in n for n in names) == 1, names
     assert not any("fused_factorize_kernel" in n or "fused_solve_kernel" in n
                    for n in names if "cluster" not in n), names
+
+
+# -- restoration, warm start and checkpoints on the card ----------------------
+
+
+def _restoration_solver():
+    """``opf.build_sparse(nb=118, seed=0, parametric=True)`` on the card,
+    banded, float64: at load scale 2.0 it is infeasible, and the solve
+    passes through soft and robust restoration."""
+    return T.MadNLPSolver(opf.build_sparse(nb=118, seed=0, parametric=True),
+                          linear_solver=T.LinearSolver.BANDED,
+                          richardson=T.RichardsonOptions(mu_scaled=True),
+                          print_level=T.PrintLevel.ERROR)
+
+
+def _counting_least_squares(solver):
+    """Count the least-squares multiplier solves (one uncounted
+    factorization each: the start and every return from robust
+    restoration to the regular phase)."""
+    calls = []
+    inner = solver.kernel._least_squares_duals
+
+    def counted(st):
+        calls.append(1)
+        return inner(st)
+
+    solver.kernel._least_squares_duals = counted
+    return calls
+
+
+def test_restoration_solve_on_the_card():
+    """Bit for bit on a repeat; K1 once per factorization (and per
+    least-squares solve), K2 at least once per backsolve; K5-K7 and every
+    witness never."""
+    _need_cuda()
+    runs = []
+    for _ in range(2):
+        solver = _restoration_solver()
+        lsq = _counting_least_squares(solver)
+        bk.reset_counts()
+        bf.reset_counts()
+        dk.reset_counts()
+        stats = solver.solve(params=2.0)
+        runs.append((stats, {**bk.counts(), **bf.counts(),
+                             **bf.witness_counts(), **dk.counts()}, len(lsq)))
+    (a, counts, lsq), (b, _, _) = runs
+    assert a.status == T.Status.INFEASIBLE_PROBLEM_DETECTED
+    assert a.counters == b.counters and a.objective == b.objective
+    assert np.array_equal(a.solution, b.solution)
+    assert np.array_equal(a.multipliers, b.multipliers)
+    assert lsq > 1       # the start and at least one return to regular
+    assert counts.pop("banded_factorize_cuda") == \
+        a.counters["factorization_cnt"] + lsq
+    assert counts.pop("banded_solve_cuda") >= a.counters["backsolve_cnt"]
+    assert not any(counts.values()), counts
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """Saved inside robust restoration, loaded back onto the card into a
+    fresh solver and finished there: bit for bit the uninterrupted
+    solve."""
+    _need_cuda()
+    from madnlp_tpu_torch.utils.checkpoint import resume, save_state
+    from madnlp_tpu_torch.utils.status import Status as S
+
+    def steps(solver, st, n=None):
+        k = solver.kernel
+        step = {int(S.REGULAR): k.regular_step, int(S.RESTORE): k.restore_step,
+                int(S.ROBUST): k.robust_step}
+        done = 0
+        while st.status in step and (n is None or done < n):
+            st = step[st.status](st)
+            done += 1
+        return st
+
+    whole = _restoration_solver().solve(params=2.0)
+    first = _restoration_solver()
+    st = first.kernel.initialize(first._params(2.0))
+    # step until robust restoration is set up and continues
+    while (st.status in (int(S.REGULAR), int(S.RESTORE))
+           or (st.status == int(S.ROBUST) and st.rr_init_needed)):
+        st = steps(first, st, 1)
+    assert st.status == int(S.ROBUST)
+    path = str(tmp_path / "state.npz")
+    save_state(st, path)
+    second = _restoration_solver()
+    st2 = resume(second, path)
+    assert st2.x.device.type == "cuda" and st2.RR.pp.device.type == "cuda"
+    assert torch.equal(st2.x, st.x) and torch.equal(st2.RR.zp, st.RR.zp)
+    st2 = steps(second, st2)
+    again = second._stats(st2, 0.0)
+    assert again.status == whole.status
+    assert again.counters == whole.counters
+    assert np.array_equal(again.solution, whole.solution)
