@@ -147,6 +147,18 @@ script exits non-zero without a result):
    (eigmina's condensed system has equality rows, so LDLᵀ, which is K7)
    against the JAX package's status, eigmina's objective against its
    optimum 1.
+    ``batch_restoration``: ``solve_batch`` of the same model at load
+    scales (1.0, 1.04, 2.0) in one bulk run, float64 and float32: the
+    overloaded lane restores inside the batch (its soft and robust
+    systems factored by K3 and solved by K4) while the others solve.  In
+    float64 the solving lanes are held to the JAX package's cold solves
+    (``WARM_REFERENCE``: status, iterations, factorizations, objective
+    within 1e-8), in float32 to the port's single solves on the card (and
+    backsolves within 15%); the 2.0 lane to the single restoration solve
+    above (equal, or else inside ``BATCH_RESTORATION_SPREAD``; status and
+    ``inf_pr`` against the JAX package's), steps by phase per lane; K3 and
+    K4 launched, K1/K2, K5-K7 and every witness never; the float32 batch
+    repeated under torch.profiler, bit for bit, for the busy share.
 10. ``warm_start`` — the parametric flagship model in float64 solved at
     load scale 1.0 and re-solved on the same solver at 1.0 (held to the
     JAX package's warm re-solve: status, iterations, factorizations) and at
@@ -439,6 +451,25 @@ WARM_REFERENCE = {
 }
 WARM_OBJ_RTOL = 1e-6
 CHECKPOINT_AFTER = 4     # hand-driven steps before the checkpoint
+# Restoration inside solve_batch: three lanes of the parametric flagship,
+# two that solve (held in float64 to WARM_REFERENCE's JAX cold solves at
+# 1.0 and 1.04, in float32 to the port's single solves on the card) and
+# one overloaded (held to the port's single restoration solve of the
+# ``restoration`` phase on the card: equal, or else inside
+# BATCH_RESTORATION_SPREAD; status and inf_pr as there)
+BATCH_RESTORATION_SCALES = (1.0, 1.04, 2.0)
+# The 2.0 lane is the single solve's arithmetic but for the rounding of the
+# batched torch operations around K3/K4, and its counts over 200 steps
+# are a property of that rounding: the lane's one-ulp spread on the card
+# (tools/restoration_spread.py batch, seeds 0-12 in float32, 0-8 in
+# float64) lies inside RESTORATION_SPREAD in float64; in float32 it takes
+# 12-17 soft steps and 208-246 steps (the single solves: 12-15 and
+# 209-272).  The lane is held to the union of both ranges.
+BATCH_RESTORATION_SPREAD = {
+    "float64": RESTORATION_SPREAD["float64"],
+    "float32": {**RESTORATION_SPREAD["float32"], "restore": (12, 17),
+                "steps": (208, 272)},
+}
 
 
 def emit(obj):
@@ -2359,10 +2390,10 @@ def phase_restoration(torch, port):
               "launches": counts, "wall_s": wall,
               "iter_per_s": stats.iter / wall,
               "steps_per_s": got["steps"] / wall})
-        out[dtype] = (stats, counts)
+        out[dtype] = (stats, counts, seen)
     # the repeat runs under torch.profiler (which changes no arithmetic):
     # bit for bit the first float32 solve, and the card's busy share
-    first, counts32 = out["float32"]
+    first, counts32, _ = out["float32"]
     repeat = {}
 
     def profiled():
@@ -2380,6 +2411,8 @@ def phase_restoration(torch, port):
     if not same:
         raise AssertionError("the repeated float32 restoration solve differs")
     emit(dict(phase="restoration_profile", dtype="float32", **prof))
+    single = {dtype: (stats, _restoration_counters(stats, seen_))
+              for dtype, (stats, _, seen_) in out.items()}
 
     # the dense path (K7 where the condensed system has equality rows)
     for name, status in DENSE_RESTORATION.items():
@@ -2408,7 +2441,164 @@ def phase_restoration(torch, port):
         if k7 != (want if ldl else 0) or any(counts.values()):
             raise AssertionError(f"dense {name}: K7 {k7}, others {counts}")
     return {"launches": (counts32["banded_factorize_cuda"],
-                         counts32["banded_solve_cuda"])}
+                         counts32["banded_solve_cuda"]),
+            "single": single}
+
+
+def _count_batch_steps(solver, lanes):
+    """Count each lane's steps by phase (its status at the start of each
+    batched step) and the batched steps."""
+    from madnlp_tpu_torch.utils.status import Status as S
+
+    names = {int(S.REGULAR): "regular", int(S.RESTORE): "restore",
+             int(S.ROBUST): "robust"}
+    seen = {"batched_steps": 0,
+            "lanes": [dict.fromkeys(names.values(), 0) for _ in range(lanes)]}
+    bk = solver.batch_kernel
+    inner = bk.step
+
+    def counted(st):
+        seen["batched_steps"] += 1
+        for i, code in enumerate(st.status):
+            if int(code) in names:
+                seen["lanes"][i][names[int(code)]] += 1
+        return inner(st)
+    bk.step = counted
+    return seen
+
+
+def _batch_restoration(torch, port, dtype):
+    """One bulk ``solve_batch`` of BATCH_RESTORATION_SCALES on the card
+    (model and set-up excluded from the wall), every kernel's count set to
+    0 just before.  Returns (summary, wall, kernel counts, step counts)."""
+    from madnlp_tpu_torch.models.instances import opf
+
+    solver = _banded_solver(
+        port, opf.build_sparse(nb=600, seed=0, parametric=True), dtype)
+    seen = _count_batch_steps(solver, len(BATCH_RESTORATION_SCALES))
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t = time.perf_counter()
+    st = solver.solve_batch(BATCH_RESTORATION_SCALES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return port.batch_summary(solver.prob, st), wall, _all_counts(), seen
+
+
+def _lane_counters(summ, seen, i):
+    c, steps = summ["counters"], seen["lanes"][i]
+    return {"iter": int(summ["iter"][i]),
+            "factorization_cnt": int(c["factorization_cnt"][i]),
+            "backsolve_cnt": int(c["backsolve_cnt"][i]),
+            "restore": steps["restore"], "robust": steps["robust"],
+            "steps": sum(steps.values())}
+
+
+def _check_batch_restoration(port, dtype, summ, counts, seen, solved, resto):
+    """``solved``: the reference (status, iter, factorizations,
+    backsolves or None, objective) of each solving lane; ``resto``: the
+    port's single restoration solve's counters."""
+    where = f"batch_restoration {dtype}"
+    for i, (status, iters, facts, backs, obj) in enumerate(solved):
+        got = _lane_counters(summ, seen, i)
+        name = port.Status(int(summ["status"][i])).name
+        if (name, got["iter"], got["factorization_cnt"]) != (status, iters,
+                                                            facts):
+            raise AssertionError(f"{where} lane {i}: {name} {got}, reference "
+                                 f"{status} {iters} {facts}")
+        if abs(summ["objective"][i] - obj) > OBJ_RTOL * abs(obj):
+            raise AssertionError(f"{where} lane {i}: objective "
+                                 f"{summ['objective'][i]!r}, reference {obj!r}")
+        if backs is not None and abs(got["backsolve_cnt"] - backs) > \
+                BACKSOLVE_LANE_RTOL * backs:
+            raise AssertionError(f"{where} lane {i}: backsolves "
+                                 f"{got['backsolve_cnt']}, single {backs}")
+    i = len(solved)
+    got = _lane_counters(summ, seen, i)
+    ref = RESTORATION_REFERENCE[dtype]
+    name = port.Status(int(summ["status"][i])).name
+    if name != ref["status"]:
+        raise AssertionError(f"{where}: status {name}, JAX {ref['status']}")
+    spread = BATCH_RESTORATION_SPREAD[dtype]
+    if got != resto and any(not spread[k][0] <= v <= spread[k][1]
+                            for k, v in got.items()):
+        raise AssertionError(f"{where}: {got} neither the single solve's "
+                             f"{resto} nor inside the spread {spread}")
+    if abs(summ["inf_pr"][i] - ref["inf_pr"]) > \
+            RESTORATION_INF_PR_RTOL * ref["inf_pr"]:
+        raise AssertionError(f"{where}: inf_pr {summ['inf_pr'][i]!r}, JAX "
+                             f"{ref['inf_pr']!r}")
+    if not np.isfinite(summ["x"]).all():
+        raise AssertionError(f"{where}: non-finite solution")
+    others = dict(counts)
+    k3 = others.pop("banded_factorize_batched_cuda")
+    k4 = others.pop("banded_solve_batched_cuda")
+    if k3 == 0 or k4 == 0 or any(others.values()):
+        raise AssertionError(f"{where}: kernels launched {counts}")
+    return got
+
+
+def phase_batch_restoration(torch, port, single):
+    """``single``: the ``restoration`` phase's single solves at 2.0."""
+    out = {}
+    for dtype in ("float64", "float32"):
+        if dtype == "float64":
+            solved = [WARM_REFERENCE[k][:3] + (None, WARM_REFERENCE[k][3])
+                      for k in ("cold_1.0", "cold_1.04")]
+        else:
+            from madnlp_tpu_torch.models.instances import opf
+
+            model = opf.build_sparse(nb=600, seed=0, parametric=True)
+            solved = []
+            for scale in BATCH_RESTORATION_SCALES[:2]:
+                s = _banded_solver(port, model, dtype).solve(params=scale)
+                solved.append((s.status.name, s.iter,
+                               s.counters["factorization_cnt"],
+                               s.counters["backsolve_cnt"], s.objective))
+        summ, wall, counts, seen = _batch_restoration(torch, port, dtype)
+        stats, resto = single[dtype]
+        got = _check_batch_restoration(port, dtype, summ, counts, seen,
+                                       solved, resto)
+        lane_iters = int(summ["iter"].sum())
+        k3 = counts["banded_factorize_batched_cuda"]
+        k4 = counts["banded_solve_batched_cuda"]
+        emit({"phase": "batch_restoration", "dtype": dtype,
+              "scales": BATCH_RESTORATION_SCALES,
+              "status": [port.Status(int(v)).name for v in summ["status"]],
+              "iter": summ["iter"].tolist(),
+              "factorization_cnt": summ["counters"]["factorization_cnt"]
+              .tolist(),
+              "backsolve_cnt": summ["counters"]["backsolve_cnt"].tolist(),
+              "objective": summ["objective"].tolist(),
+              "steps_by_phase": seen["lanes"],
+              "batched_steps": seen["batched_steps"],
+              "restoration_lane": got, "single_restoration": resto,
+              "equal_to_single": got == resto,
+              "single_solved_lanes": solved,
+              "inf_pr": float(summ["inf_pr"][-1]),
+              "K3_launches": k3, "K4_launches": k4,
+              "K3_per_batched_step": k3 / seen["batched_steps"],
+              "K4_per_batched_step": k4 / seen["batched_steps"],
+              "launches": counts, "wall_s": wall,
+              "lane_iterations": lane_iters,
+              "lane_iter_per_s": lane_iters / wall})
+        out[dtype] = summ
+    # the float32 batch repeated under torch.profiler: bit for bit, and
+    # the card's busy share
+    repeat = {}
+
+    def profiled():
+        summ, wall, _, _ = _batch_restoration(torch, port, "float32")
+        repeat["summ"] = summ
+        return int(summ["iter"].max()), wall
+    prof = _profile(torch, port, profiled, host=False)
+    same = _same_batch(repeat["summ"], out["float32"]) and np.array_equal(
+        repeat["summ"]["status"], out["float32"]["status"])
+    emit({"phase": "batch_restoration", "dtype": "float32", "repeat": True,
+          "under_profiler": True, "bit_identical": same})
+    if not same:
+        raise AssertionError("the repeated float32 restoration batch differs")
+    emit(dict(phase="batch_restoration_profile", dtype="float32", **prof))
 
 
 def phase_warm_start(torch, port):
@@ -2540,11 +2730,17 @@ def main():
     worst["K7_witness"] = phase_dense_witness(torch)
     dense = phase_dense_solve(torch, port)
     main_matrix = phase_dense_main_matrix(torch, dense["K"])
-    for phase in (phase_restoration, phase_warm_start, phase_checkpoint):
+    def timed(phase, *args):
         t = time.perf_counter()
-        phase(torch, port)
+        got = phase(torch, port, *args)
         emit({"phase": phase.__name__[len("phase_"):], "phase_seconds":
               time.perf_counter() - t})
+        return got
+
+    resto = timed(phase_restoration)
+    timed(phase_batch_restoration, resto["single"])
+    timed(phase_warm_start)
+    timed(phase_checkpoint)
 
     kernels = []
     for path, i, name, key, errs, line in (

@@ -22,12 +22,23 @@ out here:
 The vector kernels (:mod:`.kernels`) are shared with the single solve and
 broadcast over the lane axis; the scalar predicates run lane by lane.  Every
 factorization goes through the batched band kernel K3 and every backsolve
-through K4, under the mask of the lanes that need them.  Soft and robust
-restoration come in a later slice: a lane that enters them is left with the
-status RESTORE / ROBUST, and the solver raises.
+through K4, under the mask of the lanes that need them.
+
+:meth:`BatchKernel.step` is one step of the three-phase state machine
+(``batched_step``): the regular, soft restoration and robust restoration
+passes each run on the lanes whose status held that phase at the start of
+the step, as ``lax.switch`` picks one branch per lane, so a lane that the
+regular pass sends to RESTORE takes its first restore step in the next
+batched step.  Each pass factors its own lanes (one K3 launch per
+factorization of the pass, the δ ladder's included) and solves them (K4);
+the restoration systems take the same band, ordering and launch plans as
+the regular ones, since their terms reach the band only through the
+diagonals.  A lane that has finished is not touched again.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -172,21 +183,23 @@ class BatchKernel:
             st.status[read[:, col] == 0.0] = int(code)
         return st
 
-    def _least_squares_duals(self, st: BatchState):
-        """The single solve's least-squares duals, every lane at once (one
-        uncounted K3 factorization and its refinement)."""
+    def _least_squares_duals(self, st: BatchState, lanes=None):
+        """The single solve's least-squares duals of the lanes in ``lanes``
+        (every lane by default; zero on the others): one uncounted K3
+        factorization and its refinement."""
         p = self.prob
         B = st.lanes
-        every = np.ones(B, dtype=bool)
+        if lanes is None:
+            lanes = np.ones(B, dtype=bool)
         ones = p.zeros(B, p.nw) + 1.0
         ctx = self.kkt.build_and_factorize(
             hess=p.hess_template(B), jac=st.jac, reg=ones,
             du_diag=p.zeros(B, p.m), dl=ones, du_=ones,
-            zl=p.zeros(B, p.nw), zu=p.zeros(B, p.nw), active=every,
+            zl=p.zeros(B, p.nw), zu=p.zeros(B, p.nw), active=lanes,
         )
         rhs = KKTVec(xp=-st.f + st.zl - st.zu, y=p.zeros(B, p.m),
                      zl=p.zeros(B, p.nw), zu=p.zeros(B, p.nw))
-        d, ok, _ = self.kkt.solve_refine(ctx, rhs, active=every)
+        d, ok, _ = self.kkt.solve_refine(ctx, rhs, active=lanes)
         too_big = (d.y.abs().amax(-1).cpu().numpy()
                    > self.opts.constr_mult_init_max)
         return self._sel(ok & ~too_big, d.y, torch.zeros_like(d.y))
@@ -246,34 +259,49 @@ class BatchKernel:
             zu=torch.where(self.ub, du_ * st.zu - mu, 0.0),
         )
 
-    def _factorize(self, st: BatchState, del_w, del_c, lanes, prev):
+    def _factorize(self, st: BatchState, del_w, del_c, lanes, prev,
+                   rr: bool = False):
+        """The single solve's ``_factorize`` of the lanes in ``lanes`` (K3);
+        ``rr``: the robust-restoration system of each lane."""
         o, p = self.opts, self.prob
         B = st.lanes
         dl, du_ = self.slacks(st.x, st.xl, st.xu)
-        reg = (p.zeros(B, p.nw) + o.default_primal_regularization
-               + self._t(del_w)[:, None])
-        du_diag = (p.zeros(B, p.m) - o.default_dual_regularization
-                   - self._t(del_c)[:, None])
+        del_w = self._t(del_w)[:, None]
+        del_c = self._t(del_c)[:, None]
+        if rr:
+            R = st.RR
+            reg = (o.default_primal_regularization
+                   + self._t(R.zeta)[:, None] * R.D_R**2 + del_w)
+            du_diag = (-o.default_dual_regularization - R.pp / R.zp
+                       - R.nn / R.zn - del_c)
+        else:
+            reg = p.zeros(B, p.nw) + o.default_primal_regularization + del_w
+            du_diag = p.zeros(B, p.m) - o.default_dual_regularization - del_c
         return self.kkt.build_and_factorize(
-            st.hess, st.jac, reg, du_diag, dl, du_, st.zl, st.zu,
+            st.hess, st.jac, reg, du_diag, dl, du_, st.zl, st.zu, rr=rr,
             active=lanes, prev=prev)
 
-    def inertia_correction(self, st: BatchState, p_rhs: KKTVec, act):
+    def inertia_correction(self, st: BatchState, p_rhs: KKTVec, act,
+                           rr: bool = False):
         """The δ ladder of every lane in ``act`` at once: each attempt
         factors (K3) and solves only the lanes still climbing, the others
-        keep their factor and direction.  Returns (ctx, d, success (B,))."""
+        keep their factor and direction.  ``rr``: the robust-restoration
+        system, whose solves keep the exact refinement tolerance and whose
+        δ_c follows μ_R.  Returns (ctx, d, success (B,))."""
         o, p = self.opts, self.prob
         B = st.lanes
         ok = np.zeros(B, dtype=bool)
         nzero = np.zeros(B, dtype=np.int64)
         ctx = d = None
+        mu_refine = None if rr else st.mu
+        mu = st.RR.mu_R if rr else st.mu
 
         def attempt(lanes, del_w, del_c):
             nonlocal ctx, d
-            ctx = self._factorize(st, del_w, del_c, lanes, ctx)
+            ctx = self._factorize(st, del_w, del_c, lanes, ctx, rr=rr)
             pos, zero, _ = self.kkt.inertia(ctx).T
             # the solve runs (and is counted) whatever the inertia
-            dn, solved, iters = self.kkt.solve_refine(ctx, p_rhs, mu=st.mu,
+            dn, solved, iters = self.kkt.solve_refine(ctx, p_rhs, mu=mu_refine,
                                                       active=lanes)
             d = dn if d is None else self._sel_vec(lanes, dn, d)
             st.factorization_cnt[lanes] += 1
@@ -295,7 +323,7 @@ class BatchKernel:
                     int(n_trial[i]), float(del_w[i]), float(st.del_w_last[i]))
                 # δ_c on rank-deficient Jacobian (num_zero != 0)
                 del_c[i] = (o.jacobian_regularization_value
-                            * float(st.mu[i]) ** o.jacobian_regularization_exponent
+                            * float(mu[i]) ** o.jacobian_regularization_exponent
                             if nzero[i] != 0 else 0.0)
                 n_trial[i] += 1
                 if del_w[i] > o.max_hessian_perturbation:
@@ -543,15 +571,26 @@ class BatchKernel:
         st.status[done] = int(S.LINESEARCH_SUCCEEDED)
 
     # ------------------------------------------------------------------
-    # regular! — one masked iteration of every REGULAR lane
+    # one batched step, and regular! — one masked iteration of the
+    # REGULAR lanes
     # ------------------------------------------------------------------
 
-    def regular_step(self, st: BatchState) -> BatchState:
+    def step(self, st: BatchState) -> BatchState:
+        """One step of every active lane (``batched_step``): the regular,
+        restore and robust passes, each on the lanes whose status held its
+        phase at the start of the step."""
+        phase = [st.status == int(code)
+                 for code in (S.REGULAR, S.RESTORE, S.ROBUST)]
+        for run, on in zip((self.regular_step, self.restore_step,
+                            self.robust_step), phase):
+            if on.any():
+                st = run(st, on)
+        return st
+
+    def regular_step(self, st: BatchState, act) -> BatchState:
+        """One iteration of the REGULAR lanes in ``act``."""
         o, p = self.opts, self.prob
         lb, ub = self.lb, self.ub
-        act = st.status == int(S.REGULAR)
-        if not act.any():
-            return st
 
         # Jacobian refresh (skipped at k == 0: evaluated in initialize)
         refresh = act & (st.k > 0)
@@ -606,15 +645,29 @@ class BatchKernel:
         st.d = self._sel_vec(act, d, st.d)
         st.p = self._sel_vec(act, p_rhs, st.p)
         # solver.jl:646-649: k += 1 before switching to robust restoration
-        # (which the solver does not run in this slice)
         fail = act & ~ok
         st.status[fail] = int(S.ROBUST)
         st.k[fail] += 1
+        st.rr_init_needed[fail] = True
 
         search = act & ok
         if not search.any():
             return st
         self.filter_line_search(st, ctx, d, search)
+        resto = search & (st.status == int(S.RESTORE))
+        if resto.any():
+            # stash the backups and set soft restoration up
+            # (solver.jl:300-322)
+            dl, du_ = self.slacks(st.x, st.xl, st.xu)
+            F = K.get_F(st.c, st.f, st.zl, st.zu, st.jacl, dl, du_, lb, ub,
+                        self._t(st.mu)).cpu().numpy()
+            st.soft_F = np.where(resto, F, st.soft_F)
+            st.del_w[resto] = 0.0
+            st.backup_x = self._sel(resto, st.x, st.backup_x)
+            st.backup_y = self._sel(resto, st.y, st.backup_y)
+            st.backup_c = self._sel(resto, st.c, st.backup_c)
+            st.alpha_z[resto] = 0.0
+            st.ftype[resto] = K.FTYPE_RESTORE
         acc = search & (st.status == int(S.LINESEARCH_SUCCEEDED))
         if not acc.any():
             return st
@@ -641,4 +694,455 @@ class BatchKernel:
         st.grad_cnt[acc] += 1
         st.k[acc] += 1
         st.status[acc] = int(S.REGULAR)
+        return st
+
+    # ------------------------------------------------------------------
+    # restore! — soft restoration, one masked iteration (solver.jl:300-411)
+    # ------------------------------------------------------------------
+
+    def _filter_ok(self, filt, lanes, theta, varphi):
+        """Per lane of ``lanes``: (theta, varphi) acceptable to its filter."""
+        ok = np.zeros(len(lanes), dtype=bool)
+        for i in np.flatnonzero(lanes):
+            ok[i] = K.is_filter_acceptable(K.filter_lane(filt, i), theta[i],
+                                           varphi[i])
+        return ok
+
+    def restore_step(self, st: BatchState, act) -> BatchState:
+        o, p = self.opts, self.prob
+        lb, ub = self.lb, self.ub
+        B = st.lanes
+        mu_t = self._t(st.mu)
+        d = st.d
+        alpha_max, alpha_z = torch.stack([
+            K.get_alpha_max(st.x, st.xl, st.xu, d.xp, self._t(st.tau), lb, ub),
+            K.get_alpha_z(st.zl, st.zu, d.zl, d.zu, self._t(st.tau), lb, ub),
+        ], -1).cpu().numpy().T
+        alpha = np.where(act, np.minimum(alpha_max, alpha_z), 0.0)
+        a = self._t(alpha)[:, None]
+        x = st.x + a * d.xp
+        y = st.y + a * d.y
+        zl = st.zl + a * d.zl
+        zu = st.zu + a * d.zu
+        c = self.eval_cons(st, x)
+        f = p.eval_grad(st.scal, x, st.theta)
+        obj = self.eval_obj(st, x)
+        if not o.jacobian_constant:
+            st.jac = self._sel(act, p.eval_jac(st.scal, x, st.theta), st.jac)
+            st.jac_cnt[act] += 1
+        jacl = self.kkt.jtprod(st.jac, y)
+        st.con_cnt[act] += 1
+        st.grad_cnt[act] += 1
+        st.obj_cnt[act] += 1
+        dl, du_ = self.slacks(x, st.xl, st.xu)
+        obj, F_trial = torch.stack([
+            obj.to(torch.float64),
+            K.get_F(c, f, zl, zu, jacl, dl, du_, lb, ub, mu_t)], -1,
+        ).cpu().numpy().T
+        st.x, st.y = self._sel(act, x, st.x), self._sel(act, y, st.y)
+        st.zl, st.zu = self._sel(act, zl, st.zl), self._sel(act, zu, st.zu)
+        st.c, st.f = self._sel(act, c, st.c), self._sel(act, f, st.f)
+        st.jacl = self._sel(act, jacl, st.jacl)
+        st.obj_val = np.where(act, obj, st.obj_val)
+        st.alpha = np.where(act, alpha, st.alpha)
+
+        # revert to the backup iterate (solver.jl:362-367)
+        revert = act & (F_trial > o.soft_resto_pderror_reduction_factor
+                        * st.soft_F)
+        if revert.any():
+            st.x = self._sel(revert, st.backup_x, st.x)
+            st.y = self._sel(revert, st.backup_y, st.y)
+            st.c = self._sel(revert, st.backup_c, st.c)
+            st.status[revert] = int(S.ROBUST)
+            st.rr_init_needed[revert] = True
+        go = act & ~revert
+        if not go.any():
+            return st
+
+        xl, xu = K.adjust_boundary(st.x, st.xl, st.xu, lb, ub, mu_t)
+        st.xl, st.xu = self._sel(go, xl, st.xl), self._sel(go, xu, st.xu)
+        st.soft_F = np.where(go, F_trial, st.soft_F)
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        sd, sc = self.single._sd_sc(st)
+        theta, varphi, inf_pr, inf_du, inf_compl, icm = torch.stack([
+            K.get_theta(st.c),
+            K.get_varphi(self._t(st.obj_val), dl, du_, lb, ub, mu_t),
+            *self.single._residuals(st, sd, sc),
+            K.get_inf_compl(dl, du_, st.zl, st.zu, lb, ub, mu_t, sc),
+        ], -1).cpu().numpy().T
+        st.k[go] += 1
+        back = go & self._filter_ok(st.filter, go, theta, varphi)
+        st.status[back] = int(S.REGULAR)
+        out = go & ~back & (st.k >= o.max_iter)
+        st.status[out] = int(S.MAXIMUM_ITERATIONS_EXCEEDED)
+        run = go & ~back & ~out
+        if not run.any():
+            return st
+
+        st.t_cnt[run] += 1
+        st.inf_pr = np.where(run, inf_pr, st.inf_pr)
+        st.inf_du = np.where(run, inf_du, st.inf_du)
+        st.inf_compl = np.where(run, inf_compl, st.inf_compl)
+        st.inf_compl_mu = np.where(run, icm, st.inf_compl_mu)
+        # the JAX package's original-NLP convergence check inside soft
+        # restoration (see Kernel.restore_step)
+        nlp_converged = np.maximum(np.maximum(inf_pr, inf_du),
+                                   inf_compl) <= o.tol
+        if not o.hessian_constant:
+            st.hess = self._sel(
+                run, p.eval_lag_hess(st.scal, st.x, st.y, st.theta), st.hess)
+            st.hess_cnt[run] += 1
+        p_rhs = self._aug_rhs(st, st.c, st.mu)
+        ctx = self._factorize(st, np.zeros(B), np.zeros(B), run, None)
+        # restoration solves keep the exact refinement tolerance
+        d, _, iters = self.kkt.solve_refine(ctx, p_rhs, mu=None, active=run)
+        st.d = self._sel_vec(run, d, st.d)
+        st.p = self._sel_vec(run, p_rhs, st.p)
+        st.factorization_cnt[run] += 1
+        st.backsolve_cnt[run] += iters[run]
+        st.last_ir[run] = iters[run]
+        st.ftype[run] = K.FTYPE_F
+        st.status[run & nlp_converged] = int(S.SOLVE_SUCCEEDED)
+        st.status[run & ~nlp_converged] = int(S.RESTORE)
+        return st
+
+    # ------------------------------------------------------------------
+    # robust! — ℓ1-penalty restoration, one masked iteration
+    # (solver.jl:413-545)
+    # ------------------------------------------------------------------
+
+    def _init_robust_restorer(self, st: BatchState, lanes) -> None:
+        """initialize_robust_restorer! (restoration.jl:39-75) of the lanes
+        in ``lanes``."""
+        o = self.opts
+        rho = o.rho
+        R = st.RR
+        c = st.c
+        theta_ref, c_max = torch.stack([K.get_theta(c), K.get_inf_pr(c)],
+                                       -1).cpu().numpy().T
+        mu_R = np.maximum(st.mu, c_max)
+        mu_t = self._t(mu_R)
+        zeta = np.sqrt(mu_R)
+        zeta_t = self._t(zeta)
+        D_R = torch.clamp_max(1.0 / torch.clamp_min(st.x.abs(), 1e-300), 1.0)
+        nn = K.populate_RR_nn(c, mu_t, rho)
+        pp = c + nn
+        obj_val_R = K.get_obj_val_R(pp, nn, D_R, st.x, st.x, rho,
+                                    zeta_t).cpu().numpy()
+
+        def put(name, new):
+            setattr(R, name, self._sel(lanes, new, getattr(R, name)))
+
+        put("x_ref", st.x)
+        put("D_R", D_R)
+        put("nn", nn)
+        put("pp", pp)
+        put("zp", mu_t[:, None] / pp)
+        put("zn", mu_t[:, None] / nn)
+        put("f_R", torch.zeros_like(st.x))
+        R.theta_ref = np.where(lanes, theta_ref, R.theta_ref)
+        R.mu_R = np.where(lanes, mu_R, R.mu_R)
+        R.tau_R = np.where(lanes, np.maximum(o.tau_min, 1.0 - mu_R), R.tau_R)
+        R.zeta = np.where(lanes, zeta, R.zeta)
+        R.obj_val_R = np.where(lanes, obj_val_R, R.obj_val_R)
+        R.filter = K.filter_lanes(K.filter_reset, R.filter, lanes,
+                                  st.theta_max)
+        st.y = self._sel(lanes, torch.zeros_like(st.y), st.y)
+        st.zl = self._sel(lanes, torch.where(
+            self.lb, torch.clamp_max(st.zl, rho), 0.0), st.zl)
+        st.zu = self._sel(lanes, torch.where(
+            self.ub, torch.clamp_max(st.zu, rho), 0.0), st.zu)
+        st.t_cnt[lanes] = 0
+        st.del_w[lanes] = 0.0
+        st.rr_init_needed[lanes] = False
+
+    def _update_monotone_RR(self, st: BatchState, sc, act) -> None:
+        """The restoration barrier's monotone decrease (barrier.jl:39-88)
+        of the lanes in ``act``."""
+        o = self.opts
+        bo = o.barrier_options
+        R = st.RR
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        sc_t = self._t(sc)
+        mu_R, tau_R, zeta = R.mu_R.copy(), R.tau_R.copy(), R.zeta.copy()
+        filt = R.filter
+        loop = act.copy()
+        while loop.any():
+            icm = K.get_inf_compl_R(dl, du_, st.zl, st.zu, self.lb, self.ub,
+                                    R.pp, R.zp, R.nn, R.zn, self._t(mu_R),
+                                    sc_t).cpu().numpy()
+            err = np.maximum(np.maximum(R.inf_pr_R, R.inf_du_R), icm)
+            loop &= (mu_R >= o.mu_min) & (err <= o.barrier_tol_factor * mu_R)
+            for i in np.flatnonzero(loop):
+                mu_R[i] = K.get_mu(float(mu_R[i]), o.mu_min,
+                                   bo.mu_linear_decrease_factor,
+                                   bo.mu_superlinear_decrease_power, o.tol)
+                tau_R[i] = max(o.tau_min, 1.0 - mu_R[i])
+                zeta[i] = math.sqrt(mu_R[i])
+            filt = K.filter_lanes(K.filter_reset, filt, loop, st.theta_max)
+        R.mu_R, R.tau_R, R.zeta, R.filter = mu_R, tau_R, zeta, filt
+
+    def filter_line_search_RR(self, st: BatchState, lanes) -> None:
+        """The restoration problem's filter line search
+        (line_search.jl:129-222) of every lane in ``lanes`` at once; sets
+        each lane's trial point, alpha, ftype, RR filter and status as the
+        single solve's ``filter_line_search_RR`` does."""
+        o, p = self.opts, self.prob
+        eps = self.eps
+        lb, ub = self.lb, self.ub
+        B = st.lanes
+        R, d = st.RR, st.d
+        mu_R, tau_R = self._t(R.mu_R), self._t(R.tau_R)
+        zeta = self._t(R.zeta)
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        (theta_R, varphi_R, varphi_d_R, alpha_max, alpha_z,
+         rel_norm) = torch.stack([
+            K.get_theta_R(st.c, R.pp, R.nn),
+            K.get_varphi_R(self._t(R.obj_val_R), dl, du_, lb, ub, R.pp, R.nn,
+                           mu_R),
+            K.get_varphi_d_R(R.f_R, dl, du_, lb, ub, d.xp, R.pp, R.nn, R.dpp,
+                             R.dnn, mu_R, o.rho),
+            K.get_alpha_max_R(st.x, st.xl, st.xu, d.xp, lb, ub, R.pp, R.dpp,
+                              R.nn, R.dnn, tau_R),
+            K.get_alpha_z_R(st.zl, st.zu, d.zl, d.zu, lb, ub, R.zp, R.dzp,
+                            R.zn, R.dzn, tau_R),
+            K.get_rel_search_norm(st.x, d.xp),
+        ], -1).cpu().numpy().T
+        alpha_min = np.array([K.get_alpha_min(
+            theta_R[i], varphi_d_R[i], st.theta_min[i], o.gamma_theta,
+            o.gamma_phi, o.alpha_min_frac, o.delta, o.s_theta, o.s_phi,
+        ) for i in range(B)])
+        small = rel_norm < 10 * eps
+        switching = np.array([K.is_switching(
+            varphi_d_R[i], alpha_max[i], o.s_phi, o.delta, theta_R[i],
+            o.s_theta) for i in range(B)])
+
+        st.l_cnt[lanes] = 1
+        alpha = alpha_max.copy()
+        code = np.zeros(B, dtype=np.int64)
+        th_t = np.zeros(B)
+        ph_t = np.zeros(B)
+        armijo = np.zeros(B, dtype=bool)
+        second_chance = np.zeros(B, dtype=bool)
+        searching = lanes.copy()
+        while searching.any():
+            a = self._t(alpha)[:, None]
+            x_t = st.x + a * d.xp
+            pp_t = R.pp + a * R.dpp
+            nn_t = R.nn + a * R.dnn
+            obj_R_t = K.get_obj_val_R(pp_t, nn_t, R.D_R, x_t, R.x_ref, o.rho,
+                                      zeta)
+            c_t = self.eval_cons(st, x_t)
+            st.con_cnt[searching] += 1
+            dl_t, du_t = self.slacks(x_t, st.xl, st.xu)
+            read = torch.stack([
+                obj_R_t, K.get_theta_R(c_t, pp_t, nn_t),
+                K.get_varphi_R(obj_R_t, dl_t, du_t, lb, ub, pp_t, nn_t, mu_R),
+            ], -1).cpu().numpy()
+            st.x_trial = self._sel(searching, x_t, st.x_trial)
+            st.c_trial = self._sel(searching, c_t, st.c_trial)
+            R.pp_trial = self._sel(searching, pp_t, R.pp_trial)
+            R.nn_trial = self._sel(searching, nn_t, R.nn_trial)
+            R.obj_val_R_trial = np.where(searching, read[:, 0],
+                                         R.obj_val_R_trial)
+            th_t = np.where(searching, read[:, 1], th_t)
+            ph_t = np.where(searching, read[:, 2], ph_t)
+            for i in np.flatnonzero(searching):
+                armijo[i] = K.is_armijo(ph_t[i], varphi_R[i], o.eta_phi,
+                                        alpha[i], varphi_d_R[i])
+                ftype = K.get_ftype(
+                    K.filter_lane(R.filter, i), theta_R[i], th_t[i],
+                    varphi_R[i], ph_t[i], bool(switching[i]),
+                    bool(armijo[i]), st.theta_min[i], o.obj_max_inc,
+                    o.gamma_theta, o.gamma_phi, p.has_constraints, eps,
+                )
+                accept_f = ftype in (K.FTYPE_F, K.FTYPE_H)
+                if accept_f:
+                    st.ftype[i] = ftype
+                if accept_f or small[i]:
+                    searching[i] = False
+                    continue
+                alpha[i] = alpha[i] / 2.0
+                if alpha[i] < alpha_min[i]:
+                    st.restoration_fail_count[i] += 1
+                    if st.restoration_fail_count[i] >= 4:
+                        code[i] = S.RESTORATION_FAILED
+                    else:
+                        # second chance: reset the duals and the filter
+                        second_chance[i] = True
+                        st.k[i] += 1
+                        st.t_cnt[i] += 1
+                        code[i] = S.REGULAR
+                    searching[i] = False
+                    continue
+                if alpha[i] < eps * 10:
+                    code[i] = (S.SOLVED_TO_ACCEPTABLE_LEVEL
+                               if st.acceptable_cnt[i] > 0
+                               else S.SEARCH_DIRECTION_BECOMES_TOO_SMALL)
+                    searching[i] = False
+                    continue
+                st.l_cnt[i] += 1
+        st.alpha = np.where(lanes, alpha, st.alpha)
+        st.alpha_z = np.where(lanes, alpha_z, st.alpha_z)
+
+        if second_chance.any():
+            st.y = self._sel(second_chance, torch.zeros_like(st.y), st.y)
+            st.zl = self._sel(second_chance, self._bound_ones(lb, B), st.zl)
+            st.zu = self._sel(second_chance, self._bound_ones(ub, B), st.zu)
+            st.filter = K.filter_lanes(K.filter_reset, st.filter,
+                                       second_chance, st.theta_max)
+        stopped = lanes & (code != 0)
+        st.status[stopped] = code[stopped]
+        done = lanes & (code == 0)
+        augment = done & ~(switching & armijo)
+        if augment.any():
+            R.filter = K.filter_lanes(
+                lambda f, th, ph: K.filter_augment(f, th, ph, o.gamma_theta),
+                R.filter, augment, th_t, ph_t)
+        st.status[done] = int(S.LINESEARCH_SUCCEEDED)
+
+    def robust_step(self, st: BatchState, act) -> BatchState:
+        o, p = self.opts, self.prob
+        lb, ub = self.lb, self.ub
+        B = st.lanes
+        init = act & st.rr_init_needed
+        if init.any():
+            self._init_robust_restorer(st, init)
+        if not o.jacobian_constant:
+            st.jac = self._sel(act, p.eval_jac(st.scal, st.x, st.theta),
+                               st.jac)
+            st.jac_cnt[act] += 1
+        st.jacl = self._sel(act, self.kkt.jtprod(st.jac, st.y), st.jacl)
+
+        R = st.RR
+        sd, sc = self.single._sd_sc(st)
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        (sc, inf_pr, inf_du, inf_compl, inf_pr_R, inf_du_R,
+         inf_compl_R) = torch.stack([
+            sc, *self.single._residuals(st, sd, sc),
+            K.get_inf_pr_R(st.c, R.pp, R.nn),
+            K.get_inf_du_R(R.f_R, st.y, st.zl, st.zu, st.jacl, R.zp, R.zn,
+                           o.rho, sd),
+            K.get_inf_compl_R(dl, du_, st.zl, st.zu, lb, ub, R.pp, R.zp, R.nn,
+                              R.zn, 0.0, sc),
+        ], -1).cpu().numpy().T
+        st.inf_pr = np.where(act, inf_pr, st.inf_pr)
+        st.inf_du = np.where(act, inf_du, st.inf_du)
+        st.inf_compl = np.where(act, inf_compl, st.inf_compl)
+        R.inf_pr_R = np.where(act, inf_pr_R, R.inf_pr_R)
+        R.inf_du_R = np.where(act, inf_du_R, R.inf_du_R)
+        R.inf_compl_R = np.where(act, inf_compl_R, R.inf_compl_R)
+
+        status = np.full(B, int(S.ROBUST))
+        status[st.k >= o.max_iter] = int(S.MAXIMUM_ITERATIONS_EXCEEDED)
+        # the JAX package's original-NLP convergence check inside robust
+        # restoration (see Kernel.robust_step)
+        status[np.maximum(np.maximum(inf_pr, inf_du), inf_compl)
+               <= o.tol] = int(S.SOLVE_SUCCEEDED)
+        st.status[act] = status[act]
+
+        # the restoration problem is solved: locally infeasible, or
+        # least-squares multipliers decide (see Kernel.robust_step)
+        solved = act & (status == int(S.ROBUST)) & (np.maximum(
+            np.maximum(inf_pr_R, inf_du_R), inf_compl_R) <= o.tol)
+        st.status[solved & (inf_pr > o.tol)] = int(
+            S.INFEASIBLE_PROBLEM_DETECTED)
+        recover = solved & (inf_pr <= o.tol)
+        if recover.any():
+            y_old, jacl_old = st.y, st.jacl
+            y_new = self._least_squares_duals(st, recover)
+            st.y = self._sel(recover, y_new, st.y)
+            st.jacl = self._sel(recover, self.kkt.jtprod(st.jac, y_new),
+                                st.jacl)
+            res = torch.stack(self.single._residuals(
+                st, *self.single._sd_sc(st)), -1).cpu().numpy()
+            good = recover & (res.max(1) <= o.tol)
+            st.inf_pr = np.where(good, res[:, 0], st.inf_pr)
+            st.inf_du = np.where(good, res[:, 1], st.inf_du)
+            st.inf_compl = np.where(good, res[:, 2], st.inf_compl)
+            st.status[good] = int(S.SOLVE_SUCCEEDED)
+            bad = recover & ~good
+            st.y = self._sel(bad, y_old, st.y)
+            st.jacl = self._sel(bad, jacl_old, st.jacl)
+            st.status[bad] = int(S.RESTORATION_FAILED)
+        run = act & (status == int(S.ROBUST)) & ~solved
+        if not run.any():
+            return st
+
+        self._update_monotone_RR(st, sc, run)
+        if not o.hessian_constant:
+            st.hess = self._sel(run, p.eval_lag_hess(
+                st.scal, st.x, st.y, st.theta, is_resto=True), st.hess)
+            st.hess_cnt[run] += 1
+        p_rhs = self.single._aug_rhs_RR(st, self._t(R.mu_R)[:, None])
+        st.p = self._sel_vec(run, p_rhs, st.p)
+        _, d, ok = self.inertia_correction(st, p_rhs, run, rr=True)
+        st.d = self._sel_vec(run, d, st.d)
+        st.status[run & ~ok] = int(S.RESTORATION_FAILED)
+        go = run & ok
+        if not go.any():
+            return st
+
+        # finish_aug_solve_RR (kernels.jl:251-257)
+        rho, mu = o.rho, self._t(R.mu_R)[:, None]
+        dzp = rho - st.y - d.y - R.zp
+        dzn = rho + st.y + d.y - R.zn
+        R.dpp = self._sel(go, -R.pp + mu / R.zp - (R.pp / R.zp) * dzp, R.dpp)
+        R.dnn = self._sel(go, -R.nn + mu / R.zn - (R.nn / R.zn) * dzn, R.dnn)
+        R.dzp = self._sel(go, dzp, R.dzp)
+        R.dzn = self._sel(go, dzn, R.dzn)
+        self.filter_line_search_RR(st, go)
+        acc = go & (st.status == int(S.LINESEARCH_SUCCEEDED))
+        if not acc.any():
+            return st
+
+        alpha = self._t(st.alpha)[:, None]
+        alpha_z = self._t(st.alpha_z)[:, None]
+        x = st.x_trial
+        y = st.y + alpha * d.y
+        zl = st.zl + alpha_z * d.zl
+        zu = st.zu + alpha_z * d.zu
+        zp = R.zp + alpha_z * R.dzp
+        zn = R.zn + alpha_z * R.dzn
+        pp, nn = R.pp_trial, R.nn_trial
+        f_R = self._t(R.zeta)[:, None] * R.D_R**2 * (x - R.x_ref)
+        dl, du_ = self.slacks(x, st.xl, st.xu)
+        zl = K.reset_bound_dual(zl, dl, lb, mu[:, 0], o.kappa_sigma)
+        zu = K.reset_bound_dual(zu, du_, ub, mu[:, 0], o.kappa_sigma)
+        pp_safe = torch.where(pp > 0, pp, 1.0)
+        nn_safe = torch.where(nn > 0, nn, 1.0)
+        ks_mu = o.kappa_sigma * mu
+        zp = torch.maximum(torch.minimum(zp, ks_mu / pp_safe),
+                           mu / (o.kappa_sigma * pp_safe))
+        zn = torch.maximum(torch.minimum(zn, ks_mu / nn_safe),
+                           mu / (o.kappa_sigma * nn_safe))
+        mu_t = self._t(st.mu)
+        xl, xu = K.adjust_boundary(x, st.xl, st.xu, lb, ub, mu_t)
+        obj = self.eval_obj(st, x)
+        f = p.eval_grad(st.scal, x, st.theta)
+        R.f_R = self._sel(acc, f_R, R.f_R)
+        R.zp, R.zn = self._sel(acc, zp, R.zp), self._sel(acc, zn, R.zn)
+        R.pp, R.nn = self._sel(acc, pp, R.pp), self._sel(acc, nn, R.nn)
+        R.obj_val_R = np.where(acc, R.obj_val_R_trial, R.obj_val_R)
+        st.zl, st.zu = self._sel(acc, zl, st.zl), self._sel(acc, zu, st.zu)
+        st.xl, st.xu = self._sel(acc, xl, st.xl), self._sel(acc, xu, st.xu)
+        st.f = self._sel(acc, f, st.f)
+        st.x, st.y = self._sel(acc, x, st.x), self._sel(acc, y, st.y)
+        st.c = self._sel(acc, st.c_trial, st.c)
+        st.obj_cnt[acc] += 1
+        st.grad_cnt[acc] += 1
+        # exit check (solver.jl:509-536)
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        obj, theta, varphi = torch.stack([
+            obj.to(torch.float64), K.get_theta(st.c),
+            K.get_varphi(obj, dl, du_, lb, ub, mu_t)], -1).cpu().numpy().T
+        st.obj_val = np.where(acc, obj, st.obj_val)
+        st.k[acc] += 1
+        st.t_cnt[acc] += 1
+        back = acc & self._filter_ok(st.filter, acc, theta, varphi) & (
+            theta <= o.required_infeasibility_reduction * R.theta_ref)
+        if back.any():
+            st.y = self._sel(back, self._least_squares_duals(st, back), st.y)
+        st.status[back] = int(S.REGULAR)
+        st.status[acc & ~back] = int(S.ROBUST)
         return st

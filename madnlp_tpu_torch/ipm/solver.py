@@ -6,7 +6,8 @@ The iteration runs as a host loop over device tensors, one step at a time
 of the three-phase state machine (regular, soft restoration, robust
 restoration: :mod:`.step`); a second ``solve`` warm-starts from the last
 state.  ``solve_batch`` runs B same-structure scenarios of a parametric
-sparse model in lock step (:mod:`.batch`), regular steps only.  The KKT
+sparse model in lock step (:mod:`.batch`), each lane through the same
+three phases.  The KKT
 system follows the JAX package's presets: dense-callback models default
 to the condensed dense system (Cholesky without equality rows, LDLᵀ with
 them), sparse models to the sparse system, banded where the ordering
@@ -298,11 +299,14 @@ class MadNLPSolver:
         their remaining error (inf_pr + inf_du + inf_compl + μ) and chunk
         in that order (``"auto"`` = 3 when chunking, 0 disables).
 
+        Each lane runs the single solve's three-phase state machine: a
+        lane that needs soft or robust restoration (an overloaded scenario)
+        takes its restoration steps inside the batch, while a finished lane
+        waits unchanged (:meth:`.batch.BatchKernel.step`).
+
         Returns the final :class:`BatchState` in the original lane order;
-        summary arrays via :func:`batch_summary`.  A lane that needs soft
-        or robust restoration raises NotImplementedError (restoration
-        inside ``solve_batch`` is a later slice of the port), as does
-        ``sharding``."""
+        summary arrays via :func:`batch_summary`.  ``sharding`` raises
+        NotImplementedError (a later slice of the port)."""
         if sharding is not None:
             raise _later("sharding= (a multi-device solve_batch)")
         if not getattr(self.kernel.kkt, "banded", False):
@@ -324,34 +328,25 @@ class MadNLPSolver:
                              f"chunk_size {chunk_size}")
         st = self.batch_kernel.initialize(theta)
         if chunk_size is None:
-            return self._run_lanes(st, np.arange(B))
+            return self._run_lanes(st)
         order = np.arange(B)
         if probe_iters:
-            st = self._run_lanes(st, order, steps=probe_iters)
+            st = self._run_lanes(st, steps=probe_iters)
             score = st.inf_pr + st.inf_du + st.inf_compl + st.mu
             order = np.argsort(score, kind="stable")
             st = st.take(order)
-        chunks = split_lanes(st, chunk_size)
-        st = stack_lanes([
-            self._run_lanes(c, order[i * chunk_size:(i + 1) * chunk_size])
-            for i, c in enumerate(chunks)])
+        st = stack_lanes([self._run_lanes(c)
+                          for c in split_lanes(st, chunk_size)])
         return st.take(np.argsort(order)) if probe_iters else st
 
-    def _run_lanes(self, st: BatchState, lane_ids, steps=None) -> BatchState:
-        """Masked regular steps until no lane is active (at most ``steps``);
-        ``lane_ids`` name the lanes in the caller's order for errors."""
+    def _run_lanes(self, st: BatchState, steps=None) -> BatchState:
+        """Masked steps of the three-phase state machine until no lane is
+        active (at most ``steps``)."""
         done = 0
         while np.isin(st.status, _ACTIVE).any() and (steps is None
                                                       or done < steps):
-            st = self.batch_kernel.regular_step(st)
+            st = self.batch_kernel.step(st)
             done += 1
-            special = np.flatnonzero(np.isin(
-                st.status, (int(Status.RESTORE), int(Status.ROBUST))))
-            if special.size:
-                i = special[0]
-                raise _later(f"restoration inside solve_batch (lane "
-                             f"{lane_ids[i]}, status "
-                             f"{Status(int(st.status[i])).name})")
         return st
 
     def _stats(self, st: State, solve_time: float) -> ExecutionStats:

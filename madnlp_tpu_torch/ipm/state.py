@@ -15,10 +15,14 @@ same point.
 :class:`BatchState` is the state of ``solve_batch``: the same fields with a
 leading lane axis — vectors ``(B, ·)`` on the device, per-lane scalars and
 counters ``(B,)`` numpy arrays on the host, the filter ``(B, capacity)`` —
-plus ``theta``, the lanes' model parameters.  :meth:`BatchState.take`,
-:func:`split_lanes` and :func:`stack_lanes` reorder, chunk and rejoin
-lanes; :func:`batch_state_from_arrays` carries a batch of JAX states
-across.
+plus ``theta``, the lanes' model parameters.  Its restoration part is the
+same as one solve's with a lane axis: the soft restoration's backups
+``(B, ·)``, ``soft_F`` and ``rr_init_needed`` ``(B,)``, and ``RR`` an
+:class:`RRState` whose vectors are ``(B, ·)``, whose scalars are ``(B,)``
+numpy arrays and whose filter is ``(B, capacity)``.
+:meth:`BatchState.take`, :func:`split_lanes` and :func:`stack_lanes`
+reorder, chunk and rejoin lanes; :func:`batch_state_from_arrays` carries a
+batch of JAX states across.
 """
 
 from __future__ import annotations
@@ -65,15 +69,24 @@ class RRState:
     zeta: float = 1.0
 
 
-def rr_zeros(nw: int, m: int, filter_capacity: int, device) -> RRState:
-    def z(k):
-        return torch.zeros((k,), dtype=torch.float64, device=device)
+def rr_zeros(nw: int, m: int, filter_capacity: int, device,
+             lanes=None) -> RRState:
+    """A zero :class:`RRState`; with ``lanes``, the batched one."""
+    lead = () if lanes is None else (lanes,)
 
-    return RRState(
+    def z(k):
+        return torch.zeros(lead + (k,), dtype=torch.float64, device=device)
+
+    R = RRState(
         f_R=z(nw), x_ref=z(nw), D_R=z(nw), pp=z(m), nn=z(m),
         zp=z(m) + 1.0, zn=z(m) + 1.0, dpp=z(m), dnn=z(m), dzp=z(m),
         dzn=z(m), pp_trial=z(m), nn_trial=z(m),
         filter=filter_init(filter_capacity))
+    if lanes is not None:
+        R.filter = filter_stack([R.filter] * lanes)
+        for f in _RR_FLOATS:
+            setattr(R, f, np.full(lanes, getattr(R, f), dtype=np.float64))
+    return R
 
 
 @dataclasses.dataclass
@@ -171,6 +184,8 @@ def state_zeros(nw: int, m: int, jac: torch.Tensor, hess: torch.Tensor,
     )
 
 
+_RR_FLOATS = ("obj_val_R", "theta_ref", "obj_val_R_trial", "inf_pr_R",
+              "inf_du_R", "inf_compl_R", "mu_R", "tau_R", "zeta")
 _VECTORS = ("x", "y", "zl", "zu", "xl", "xu", "f", "c", "jac", "hess", "jacl",
             "x_trial", "c_trial")
 _FLOATS = ("obj_val", "obj_val_trial", "mu", "tau", "theta_max", "theta_min",
@@ -290,6 +305,14 @@ class BatchState:
     jac_cnt: np.ndarray = None
     hess_cnt: np.ndarray = None
     status: np.ndarray = None
+    # soft restoration, per lane
+    soft_F: np.ndarray = None
+    backup_x: torch.Tensor = None
+    backup_y: torch.Tensor = None
+    backup_c: torch.Tensor = None
+    # robust restoration: an RRState with a lane axis
+    RR: RRState = None
+    rr_init_needed: np.ndarray = None
 
     @property
     def lanes(self) -> int:
@@ -299,18 +322,21 @@ class BatchState:
         """The lanes in ``order`` (a permutation or a selection)."""
         order = np.asarray(order, dtype=np.int64)
         idx = torch.as_tensor(order, device=self.x.device)
-        out = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
+
+        def pick(v):
             if isinstance(v, (KKTVec, Scaling)):
-                out[f.name] = type(v)(*(a[idx] for a in v))
-            elif isinstance(v, Filter):
-                out[f.name] = Filter(*(a[order].copy() for a in v))
-            elif torch.is_tensor(v):
-                out[f.name] = v[idx]
-            else:
-                out[f.name] = v[order].copy()
-        return BatchState(**out)
+                return type(v)(*(a[idx] for a in v))
+            if isinstance(v, Filter):
+                return Filter(*(a[order].copy() for a in v))
+            if isinstance(v, RRState):
+                return RRState(**{f.name: pick(getattr(v, f.name))
+                                  for f in dataclasses.fields(v)})
+            if torch.is_tensor(v):
+                return v[idx]
+            return v[order].copy()
+
+        return BatchState(**{f.name: pick(getattr(self, f.name))
+                             for f in dataclasses.fields(self)})
 
 
 def split_lanes(st: BatchState, size: int) -> list:
@@ -318,21 +344,24 @@ def split_lanes(st: BatchState, size: int) -> list:
     return [st.take(np.arange(i, i + size)) for i in range(0, st.lanes, size)]
 
 
+def _join(vs):
+    v = vs[0]
+    if isinstance(v, (KKTVec, Scaling)):
+        return type(v)(*(torch.cat(a) for a in zip(*vs)))
+    if isinstance(v, Filter):
+        return Filter(*(np.concatenate(a) for a in zip(*vs)))
+    if isinstance(v, RRState):
+        return RRState(**{f.name: _join([getattr(s, f.name) for s in vs])
+                          for f in dataclasses.fields(v)})
+    if torch.is_tensor(v):
+        return torch.cat(vs)
+    return np.concatenate(vs)
+
+
 def stack_lanes(parts: list) -> BatchState:
     """Rejoin chunks made by :func:`split_lanes` (in their order)."""
-    out = {}
-    for f in dataclasses.fields(BatchState):
-        vs = [getattr(s, f.name) for s in parts]
-        v = vs[0]
-        if isinstance(v, (KKTVec, Scaling)):
-            out[f.name] = type(v)(*(torch.cat(a) for a in zip(*vs)))
-        elif isinstance(v, Filter):
-            out[f.name] = Filter(*(np.concatenate(a) for a in zip(*vs)))
-        elif torch.is_tensor(v):
-            out[f.name] = torch.cat(vs)
-        else:
-            out[f.name] = np.concatenate(vs)
-    return BatchState(**out)
+    return BatchState(**{f.name: _join([getattr(s, f.name) for s in parts])
+                         for f in dataclasses.fields(BatchState)})
 
 
 def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, nnzh: int,
@@ -352,17 +381,27 @@ def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, nnzh: int,
         scal=Scaling(torch.ones(lanes, dtype=torch.float64, device=device),
                      torch.ones((lanes, m), dtype=torch.float64,
                                 device=device)),
-        theta=theta, **fields)
+        theta=theta, soft_F=np.zeros(lanes), backup_x=z(nw), backup_y=z(m),
+        backup_c=z(m), RR=rr_zeros(nw, m, filter_capacity, device, lanes),
+        rr_init_needed=np.zeros(lanes, dtype=bool), **fields)
 
 
 def batch_state_from_arrays(d: dict, device) -> BatchState:
     """:func:`state_from_arrays` with a leading lane axis on every leaf:
     the same keys, each holding the stacked ``(B, ...)`` leaves of B JAX
     states (a batched JAX ``State`` converted to numpy), plus ``"theta"``,
-    the ``(B,)`` parameters."""
+    the ``(B,)`` parameters.  The restoration leaves are read where
+    present and zero otherwise, as :func:`state_from_arrays` reads them."""
 
     def vec(a):
         return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
+
+    def filt(prefix):
+        return Filter(
+            np.asarray(d[f"{prefix}.th"], dtype=np.float64).copy(),
+            np.asarray(d[f"{prefix}.ph"], dtype=np.float64).copy(),
+            np.asarray(d[f"{prefix}.count"], dtype=np.int64).copy(),
+        )
 
     fields = {k: vec(d[k]) for k in _VECTORS}
     fields.update({k: np.asarray(d[k], dtype=np.float64).copy()
@@ -371,12 +410,27 @@ def batch_state_from_arrays(d: dict, device) -> BatchState:
     for name in ("d", "p"):
         fields[name] = KKTVec(*(vec(d[f"{name}.{part}"])
                                 for part in KKTVec._fields))
-    fields["filter"] = Filter(
-        np.asarray(d["filter.th"], dtype=np.float64).copy(),
-        np.asarray(d["filter.ph"], dtype=np.float64).copy(),
-        np.asarray(d["filter.count"], dtype=np.int64).copy(),
-    )
+    fields["filter"] = filt("filter")
     fields["scal"] = Scaling(vec(d["scal.obj_scale"]),
                              vec(d["scal.con_scale"]))
     fields["theta"] = vec(d["theta"])
-    return BatchState(**fields)
+    B, nw = fields["x"].shape
+    m = fields["y"].shape[1]
+    st = BatchState(**fields)
+    for k, size in (("backup_x", nw), ("backup_y", m), ("backup_c", m)):
+        setattr(st, k, vec(d[k]) if k in d else st.x.new_zeros((B, size)))
+    st.soft_F = np.asarray(d.get("soft_F", np.zeros(B)),
+                           dtype=np.float64).copy()
+    st.rr_init_needed = np.asarray(d.get("rr_init_needed", np.zeros(B)),
+                                   dtype=bool).copy()
+    st.RR = rr_zeros(nw, m, st.filter.th.shape[1], device, B)
+    if "RR.pp" in d:
+        for f in dataclasses.fields(RRState):
+            if f.name == "filter":
+                val = filt("RR.filter")
+            elif f.name in _RR_FLOATS:
+                val = np.asarray(d[f"RR.{f.name}"], dtype=np.float64).copy()
+            else:
+                val = vec(d[f"RR.{f.name}"])
+            setattr(st.RR, f.name, val)
+    return st

@@ -776,11 +776,11 @@ class Kernel:
             filt = K.filter_reset(filt, st.theta_max)
         R.mu_R, R.tau_R, R.zeta, R.filter = mu_R, tau_R, zeta, filt
 
-    def _aug_rhs_RR(self, st: State) -> KKTVec:
-        """set_aug_rhs_RR! (kernels.jl:133-158)."""
+    def _aug_rhs_RR(self, st: State, mu) -> KKTVec:
+        """set_aug_rhs_RR! (kernels.jl:133-158); ``mu`` is μ_R (a lane
+        column in a batch)."""
         rho = self.opts.rho
         R = st.RR
-        mu = R.mu_R
         dl, du_ = self.slacks(st.x, st.xl, st.xu)
         px = -R.f_R + st.zl - st.zu - st.jacl
         py = (-st.c + R.pp - R.nn
@@ -957,7 +957,7 @@ class Kernel:
             st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta,
                                       is_resto=True)
             st.hess_cnt += 1
-        p_rhs = self._aug_rhs_RR(st)
+        p_rhs = self._aug_rhs_RR(st, R.mu_R)
         st.p = p_rhs
         _, d, ok = self.inertia_correction(st, p_rhs, rr=True)
         st.d = d

@@ -227,9 +227,20 @@ class BandAssembly:
 # -- plain device functions ---------------------------------------------------
 
 
-def pivot_div(d: torch.Tensor) -> torch.Tensor:
-    """Pivot divisor: |d| <= ZERO_PIVOT_TOL divides as inf."""
+def pivot_div(d):
+    """Pivot divisor: |d| <= ZERO_PIVOT_TOL divides as inf (a tensor, or
+    one pivot of a :func:`host_view`)."""
+    if not torch.is_tensor(d):
+        return math.inf if abs(d) <= ZERO_PIVOT_TOL else d
     return torch.where(d.abs() <= ZERO_PIVOT_TOL, math.inf, d)
+
+
+def host_view(t: torch.Tensor):
+    """A CPU tensor's memory as a numpy array, any other tensor as it is.
+    The plain factorizations run their scalar recursions on it: on the
+    CPU numpy does the same IEEE operations in the same order at a
+    fraction of torch's cost per call, so the bits are the same."""
+    return t.detach().numpy() if t.device.type == "cpu" else t
 
 
 def _corner_ldlt(C: torch.Tensor):
@@ -238,10 +249,11 @@ def _corner_ldlt(C: torch.Tensor):
     ``(M_left, invL_c)``: M_left holds l below the diagonal and d on it."""
     p = C.shape[0]
     M = torch.cat([C, torch.eye(p, dtype=C.dtype, device=C.device)], dim=1)
+    A = host_view(M)
     for j in range(p - 1):
-        lj = M[j + 1:, j] / pivot_div(M[j, j])
-        M[j + 1:, j + 1:] -= lj[:, None] * M[j, j + 1:][None, :]
-        M[j + 1:, j] = lj
+        lj = A[j + 1:, j] / pivot_div(A[j, j])
+        A[j + 1:, j + 1:] -= lj[:, None] * A[j, j + 1:][None, :]
+        A[j + 1:, j] = lj
     return M[:, :p], M[:, p:]
 
 

@@ -30,6 +30,7 @@ import os
 import torch
 
 from .banded_kernels import _SUFFIX, BUILD_DIR, compile_library
+from .banded import host_view
 from .ldlt import LDLFactor, ldlt_unblocked, pad_identity, pivot_div
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -151,8 +152,9 @@ def _unit_lower_inverse(L: torch.Tensor) -> torch.Tensor:
     substitution (``pallas_ldlt._unit_lower_inverse``)."""
     b = L.shape[0]
     X = torch.eye(b, dtype=L.dtype, device=L.device)
+    H, Lh = host_view(X), host_view(L)
     for j in range(b - 1):
-        X[j + 1:, : j + 1] -= L[j + 1:, j, None] * X[j, None, : j + 1]
+        H[j + 1:, : j + 1] -= Lh[j + 1:, j, None] * H[j, None, : j + 1]
     return X
 
 

@@ -27,7 +27,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .banded import ZERO_PIVOT_TOL, pivot_div
+from .banded import ZERO_PIVOT_TOL, host_view, pivot_div
 
 
 class LDLFactor(NamedTuple):
@@ -55,13 +55,14 @@ def ldlt_unblocked(A: torch.Tensor) -> torch.Tensor:
     copy; returns the strict-lower L with D on the diagonal, in one
     matrix (the upper triangle is don't-care)."""
     A = A.clone()
-    for j in range(A.shape[0]):
-        dj = A[j, j]
-        lj = A[j + 1:, j] / pivot_div(dj)
+    H = host_view(A)
+    for j in range(H.shape[0]):
+        dj = H[j, j]
+        lj = H[j + 1:, j] / pivot_div(dj)
         # rows and columns ≤ j of the JAX package's full-block update
         # subtract dj·0 and are never read again
-        A[j + 1:, j + 1:] -= dj * torch.outer(lj, lj)
-        A[j + 1:, j] = lj
+        H[j + 1:, j + 1:] -= dj * (lj[:, None] * lj[None, :])
+        H[j + 1:, j] = lj
     return A
 
 

@@ -238,3 +238,52 @@ def test_block_ldlt_matches_pallas_ldlt_with_inverse(b, dtype):
         assert _rel(invL.numpy(), np.asarray(jinvL)) < RTOL[dtype]
         assert int((torch.diagonal(LD) == 0).sum()) == (0 if zero is None
                                                        else 1)
+
+
+# -- the plain recursions' host path ------------------------------------------
+
+
+def _recursions():
+    from madnlp_tpu_torch.ops import dense_kernels, ldlt
+
+    return {
+        "corner": (tb, tb._corner_ldlt),
+        "unblocked": (ldlt, ldlt.ldlt_unblocked),
+        "unit_lower_inverse": (dense_kernels, lambda A: (
+            dense_kernels._unit_lower_inverse(
+                torch.tril(A, -1) + torch.eye(A.shape[0], dtype=A.dtype)),)),
+    }
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["corner", "unblocked", "unit_lower_inverse"])
+def test_host_recursions_are_the_torch_steps_bit_for_bit(name, dtype,
+                                                         monkeypatch):
+    """On a CPU tensor the scalar recursions of the plain factorizations
+    (the corner of K1/K3's diagonal step, the dense LDLᵀ's diagonal block
+    and its unit-lower inverse) run through numpy views of the tensor's
+    memory; with the views switched off they run the torch steps that
+    every other device runs.  Both give the same bits, zero and denormal
+    pivots and NaN included."""
+    module, fn = _recursions()[name]
+    rng = np.random.default_rng(8)
+    for p, mark in ((32, None), (32, "zero"), (64, "tiny"), (5, "nan")):
+        A = rng.standard_normal((p, p)) * 10.0 ** rng.integers(-4, 4)
+        A = A + A.T
+        if mark == "zero":
+            A[3, :] = A[:, 3] = 0.0
+        elif mark == "tiny":
+            A[1, 1] = 1e-31
+        elif mark == "nan":
+            A[2, 2] = np.nan
+        A = torch.tensor(A, dtype=TDT[dtype])
+        host = fn(A.clone())
+        with monkeypatch.context() as m:
+            m.setattr(module, "host_view", lambda t: t)
+            steps = fn(A.clone())
+        host = host if isinstance(host, tuple) else (host,)
+        steps = steps if isinstance(steps, tuple) else (steps,)
+        for u, v in zip(host, steps):
+            assert u.dtype == v.dtype == A.dtype
+            assert np.array_equal(u.numpy().view(np.uint8),
+                                  v.numpy().view(np.uint8))

@@ -751,6 +751,42 @@ def test_restoration_solve_on_the_card():
     assert not any(counts.values()), counts
 
 
+def test_batch_restoration_on_the_card():
+    """``solve_batch`` at (1.0, 2.0) on the card: the 2.0 lane restores
+    inside the batch.  Each lane is the port's single solve of its scale
+    on the card: status, iterations and factorizations exactly, objective
+    within 1e-8 relative, backsolves exactly on the 1.0 lane and on the
+    2.0 lane inside its one-ulp spread, 195-198, which single and batched
+    solves share (``tools/restoration_spread.py port|batch --nb 118``, seeds
+    0-6 on the card; every other count of those 14 solves is one
+    number).  K3/K4 launched; K1/K2, K5-K7 and every witness never."""
+    _need_cuda()
+    single = [_restoration_solver().solve(params=p) for p in (1.0, 2.0)]
+    assert single[1].status == T.Status.INFEASIBLE_PROBLEM_DETECTED
+    solver = _restoration_solver()
+    bk.reset_counts()
+    bf.reset_counts()
+    dk.reset_counts()
+    summ = T.batch_summary(solver.prob, solver.solve_batch([1.0, 2.0]))
+    counts = {**bk.counts(), **bf.counts(), **bf.witness_counts(),
+              **dk.counts()}
+    c = summ["counters"]
+    for i, s in enumerate(single):
+        assert summ["status"][i] == int(s.status)
+        assert summ["iter"][i] == s.iter
+        assert c["factorization_cnt"][i] == s.counters["factorization_cnt"]
+        if i == 0:
+            assert c["backsolve_cnt"][i] == s.counters["backsolve_cnt"]
+        else:
+            assert 195 <= c["backsolve_cnt"][i] <= 198
+            assert 195 <= s.counters["backsolve_cnt"] <= 198
+        assert abs(summ["objective"][i] - s.objective) \
+            <= 1e-8 * abs(s.objective)
+    assert counts.pop("banded_factorize_batched_cuda") > 0
+    assert counts.pop("banded_solve_batched_cuda") > 0
+    assert not any(counts.values()), counts
+
+
 def test_checkpoint_round_trip_on_the_card(tmp_path):
     """Saved inside robust restoration, loaded back onto the card into a
     fresh solver and finished there: bit for bit the uninterrupted

@@ -14,12 +14,16 @@ for step.  One JSON line per solve, then the spread: the range of every
 counter over the solves.
 
     python3 tools/restoration_spread.py port --device cuda --dtype float32
+    python3 tools/restoration_spread.py batch --device cuda --dtype float32
     JAX_PLATFORMS=cpu PYTHONPATH=. python tools/restoration_spread.py jax \\
         --dtype float64 --backend auto
 
-``port`` runs the PyTorch port (on ``--device``); ``jax`` runs the JAX
-package on the CPU (``--backend``: its ``banded_backend``, ``auto`` or
-``pallas_interpret``, the TPU kernel's factorization order in interpret
+``port`` runs the PyTorch port (on ``--device``); ``batch`` runs the
+port's ``solve_batch`` of the load scales ``--lanes`` and THETA, driven
+step by step through ``BatchKernel.step``, and reports the THETA lane (the
+last), every lane's initial point moved by the seed's ulps; ``jax`` runs
+the JAX package on the CPU (``--backend``: its ``banded_backend``, ``auto``
+or ``pallas_interpret``, the TPU kernel's factorization order in interpret
 mode).  ``--seeds N`` runs seeds 1..N after the unperturbed solve,
 ``--first S`` starts at seed S (to split a study over processes).
 """
@@ -86,6 +90,43 @@ def run_port(args, seed):
     return solver._stats(st, wall), phases
 
 
+def run_batch(args, seed):
+    import types
+
+    import torch
+
+    import madnlp_tpu_torch as T
+    from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.utils.status import Status as S
+
+    model = opf.build_sparse(nb=args.nb, seed=0, parametric=True)
+    if seed:
+        model.x0 = ulp(model.x0, seed)
+    solver = T.MadNLPSolver(
+        model, device=args.device, linear_solver=T.LinearSolver.BANDED,
+        dtype=args.dtype, richardson=T.RichardsonOptions(mu_scaled=True),
+        print_level=T.PrintLevel.ERROR)
+    bk = solver.batch_kernel
+    scales = [float(v) for v in args.lanes.split(",")] + [args.theta]
+    t = time.perf_counter()
+    st = bk.initialize(torch.tensor(scales, dtype=torch.float64,
+                                    device=solver.device))
+    active = (int(S.REGULAR), int(S.RESTORE), int(S.ROBUST))
+    st, phases = _trace(lambda s: int(s.status[-1]),
+                        dict.fromkeys(active, bk.step), st)
+    while np.isin(st.status, active).any():
+        st = bk.step(st)     # lanes that outlast the THETA lane
+    if args.device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    summ = T.batch_summary(solver.prob, st)
+    return types.SimpleNamespace(
+        status=S(int(summ["status"][-1])), iter=int(summ["iter"][-1]),
+        counters={k: int(v[-1]) for k, v in summ["counters"].items()},
+        primal_feas=float(summ["inf_pr"][-1]),
+        objective=float(summ["objective"][-1]), solve_time=wall), phases
+
+
 def run_jax(args, seed):
     import jax
 
@@ -114,16 +155,18 @@ def run_jax(args, seed):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("package", choices=("port", "jax"))
+    ap.add_argument("package", choices=("port", "batch", "jax"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float64")
     ap.add_argument("--backend", default="auto")
     ap.add_argument("--nb", type=int, default=600)
     ap.add_argument("--theta", type=float, default=2.0)
+    ap.add_argument("--lanes", default="1.0,1.04")
     ap.add_argument("--seeds", type=int, default=6)
     ap.add_argument("--first", type=int, default=0)
     args = ap.parse_args()
-    run = run_port if args.package == "port" else run_jax
+    run = {"port": run_port, "batch": run_batch, "jax": run_jax}[
+        args.package]
     rows = []
     for seed in range(args.first, args.seeds + 1):
         stats, phases = run(args, seed)
