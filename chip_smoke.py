@@ -458,17 +458,26 @@ CHECKPOINT_AFTER = 4     # hand-driven steps before the checkpoint
 # ``restoration`` phase on the card: equal, or else inside
 # BATCH_RESTORATION_SPREAD; status and inf_pr as there)
 BATCH_RESTORATION_SCALES = (1.0, 1.04, 2.0)
-# The 2.0 lane is the single solve's arithmetic but for the rounding of the
-# batched torch operations around K3/K4, and its counts over 200 steps
-# are a property of that rounding: the lane's one-ulp spread on the card
-# (tools/restoration_spread.py batch, seeds 0-12 in float32, 0-8 in
-# float64) lies inside RESTORATION_SPREAD in float64; in float32 it takes
-# 12-17 soft steps and 208-246 steps (the single solves: 12-15 and
-# 209-272).  The lane is held to the union of both ranges.
+# the batched steps of the float32 repeat read by torch.profiler for the
+# card's busy share: (first, count), past the solving lanes' last steps,
+# where only the overloaded lane restores (reading every event of the
+# whole batch back takes the profiler about a minute)
+PROFILE_STEPS = (30, 40)
+# The 2.0 lane runs the single solve's kernels bit for bit (K3 = K1 and
+# K4 = K2 on the same band); the batched torch reductions around them (the
+# refinement operator, the objective) sum in another order on the card, so
+# in float32 the lane parts from the single solve from its first step
+# (tools/restoration_parting.py --pair batch) and is a rounding twin of it,
+# as a one-ulp start is.  Its counts are held to the one-ulp twins of both
+# solves, the judged run (seed 0) left out of the range: RESTORATION_SPREAD
+# (seeds 1-6 of both packages), the port's single solve on the card (seeds
+# 7-40: 12-19 soft steps) and the batched lane on the card (seeds 1-40:
+# 12-16 soft steps), from tools/restoration_spread.py port|batch.
 BATCH_RESTORATION_SPREAD = {
     "float64": RESTORATION_SPREAD["float64"],
-    "float32": {**RESTORATION_SPREAD["float32"], "restore": (12, 17),
-                "steps": (208, 272)},
+    "float32": {"iter": (189, 256), "factorization_cnt": (217, 334),
+                "backsolve_cnt": (725, 1310), "restore": (12, 19),
+                "robust": (69, 120), "steps": (203, 272)},
 }
 
 
@@ -1393,6 +1402,12 @@ def _profile(torch, port, run=None, host=True):
         activities.insert(0, ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
         iters, wall = run()
+    return dict(iter=iters, **_device_time(torch, prof, wall))
+
+
+def _device_time(torch, prof, wall):
+    """A finished profiler's device time by kernel name over ``wall``
+    seconds, and the share of them during which the card was busy."""
     by_name, launches = {}, 0
     for ev in prof.events():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -1405,7 +1420,7 @@ def _profile(torch, port, run=None, host=True):
         by_name[name] = by_name.get(name, 0.0) + us / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"iter": iters, "wall_ms": 1e3 * wall,
+    return {"wall_ms": 1e3 * wall,
             "device_busy_ms": busy, "device_busy_share": busy / (1e3 * wall),
             "device_launches": launches, "top_ms": dict(top)}
 
@@ -2467,21 +2482,56 @@ def _count_batch_steps(solver, lanes):
     return seen
 
 
-def _batch_restoration(torch, port, dtype):
+def _profile_steps(torch, solver, first, count, out):
+    """Run batched steps ``first`` .. ``first + count - 1`` of ``solver``'s
+    next ``solve_batch`` under torch.profiler (device side only), and put
+    their device time by kernel and busy share in ``out``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bk = solver.batch_kernel
+    inner = bk.step
+    done = [0]
+
+    def step(st):
+        if done[0] == first:
+            torch.cuda.synchronize()
+            out["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            out["prof"].start()
+            out["t"] = time.perf_counter()
+        st = inner(st)
+        done[0] += 1
+        if done[0] == first + count:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - out.pop("t")
+            out["prof"].stop()
+            out.update(_device_time(torch, out.pop("prof"), wall),
+                       batched_steps=(first, first + count))
+        return st
+    bk.step = step
+
+
+def _batch_restoration(torch, port, dtype, profiled=None):
     """One bulk ``solve_batch`` of BATCH_RESTORATION_SCALES on the card
     (model and set-up excluded from the wall), every kernel's count set to
-    0 just before.  Returns (summary, wall, kernel counts, step counts)."""
+    0 just before.  ``profiled``: a dict that receives the device time of
+    the PROFILE_STEPS window (:func:`_profile_steps`).  Returns (summary,
+    wall, kernel counts, step counts)."""
     from madnlp_tpu_torch.models.instances import opf
 
     solver = _banded_solver(
         port, opf.build_sparse(nb=600, seed=0, parametric=True), dtype)
     seen = _count_batch_steps(solver, len(BATCH_RESTORATION_SCALES))
+    if profiled is not None:
+        _profile_steps(torch, solver, *PROFILE_STEPS, profiled)
     torch.cuda.synchronize()
     _reset_all_counts()
     t = time.perf_counter()
     st = solver.solve_batch(BATCH_RESTORATION_SCALES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    if profiled is not None and "device_busy_share" not in profiled:
+        raise AssertionError("the profiled window of batched steps did not "
+                             f"run: {seen['batched_steps']} steps")
     return port.batch_summary(solver.prob, st), wall, _all_counts(), seen
 
 
@@ -2583,19 +2633,15 @@ def phase_batch_restoration(torch, port, single):
               "lane_iterations": lane_iters,
               "lane_iter_per_s": lane_iters / wall})
         out[dtype] = summ
-    # the float32 batch repeated under torch.profiler: bit for bit, and
-    # the card's busy share
-    repeat = {}
-
-    def profiled():
-        summ, wall, _, _ = _batch_restoration(torch, port, "float32")
-        repeat["summ"] = summ
-        return int(summ["iter"].max()), wall
-    prof = _profile(torch, port, profiled, host=False)
-    same = _same_batch(repeat["summ"], out["float32"]) and np.array_equal(
-        repeat["summ"]["status"], out["float32"]["status"])
+    # the float32 batch repeated: bit for bit, and the card's busy share
+    # over a window of its batched steps under torch.profiler
+    prof = {}
+    summ, _, _, _ = _batch_restoration(torch, port, "float32", prof)
+    same = _same_batch(summ, out["float32"]) and np.array_equal(
+        summ["status"], out["float32"]["status"])
     emit({"phase": "batch_restoration", "dtype": "float32", "repeat": True,
-          "under_profiler": True, "bit_identical": same})
+          "profiled_batched_steps": prof["batched_steps"],
+          "bit_identical": same})
     if not same:
         raise AssertionError("the repeated float32 restoration batch differs")
     emit(dict(phase="batch_restoration_profile", dtype="float32", **prof))

@@ -821,14 +821,11 @@ class BatchKernel:
         theta_ref, c_max = torch.stack([K.get_theta(c), K.get_inf_pr(c)],
                                        -1).cpu().numpy().T
         mu_R = np.maximum(st.mu, c_max)
-        mu_t = self._t(mu_R)
         zeta = np.sqrt(mu_R)
-        zeta_t = self._t(zeta)
-        D_R = torch.clamp_max(1.0 / torch.clamp_min(st.x.abs(), 1e-300), 1.0)
-        nn = K.populate_RR_nn(c, mu_t, rho)
-        pp = c + nn
+        D_R, pp, nn, zp, zn = self.single._rr_slacks_init(st.x, c,
+                                                          self._t(mu_R))
         obj_val_R = K.get_obj_val_R(pp, nn, D_R, st.x, st.x, rho,
-                                    zeta_t).cpu().numpy()
+                                    self._t(zeta)).cpu().numpy()
 
         def put(name, new):
             setattr(R, name, self._sel(lanes, new, getattr(R, name)))
@@ -837,8 +834,8 @@ class BatchKernel:
         put("D_R", D_R)
         put("nn", nn)
         put("pp", pp)
-        put("zp", mu_t[:, None] / pp)
-        put("zn", mu_t[:, None] / nn)
+        put("zp", zp)
+        put("zn", zn)
         put("f_R", torch.zeros_like(st.x))
         R.theta_ref = np.where(lanes, theta_ref, R.theta_ref)
         R.mu_R = np.where(lanes, mu_R, R.mu_R)
@@ -1074,7 +1071,7 @@ class BatchKernel:
             st.hess = self._sel(run, p.eval_lag_hess(
                 st.scal, st.x, st.y, st.theta, is_resto=True), st.hess)
             st.hess_cnt[run] += 1
-        p_rhs = self.single._aug_rhs_RR(st, self._t(R.mu_R)[:, None])
+        p_rhs = self.single._aug_rhs_RR(st, self._t(R.mu_R))
         st.p = self._sel_vec(run, p_rhs, st.p)
         _, d, ok = self.inertia_correction(st, p_rhs, run, rr=True)
         st.d = self._sel_vec(run, d, st.d)
@@ -1083,14 +1080,11 @@ class BatchKernel:
         if not go.any():
             return st
 
-        # finish_aug_solve_RR (kernels.jl:251-257)
-        rho, mu = o.rho, self._t(R.mu_R)[:, None]
-        dzp = rho - st.y - d.y - R.zp
-        dzn = rho + st.y + d.y - R.zn
-        R.dpp = self._sel(go, -R.pp + mu / R.zp - (R.pp / R.zp) * dzp, R.dpp)
-        R.dnn = self._sel(go, -R.nn + mu / R.zn - (R.nn / R.zn) * dzn, R.dnn)
-        R.dzp = self._sel(go, dzp, R.dzp)
-        R.dzn = self._sel(go, dzn, R.dzn)
+        mu_R = self._t(R.mu_R)
+        dpp, dnn, dzp, dzn = self.single._finish_aug_solve_RR(R, st.y, d.y,
+                                                              mu_R)
+        R.dpp, R.dnn = self._sel(go, dpp, R.dpp), self._sel(go, dnn, R.dnn)
+        R.dzp, R.dzn = self._sel(go, dzp, R.dzp), self._sel(go, dzn, R.dzn)
         self.filter_line_search_RR(st, go)
         acc = go & (st.status == int(S.LINESEARCH_SUCCEEDED))
         if not acc.any():
@@ -1104,18 +1098,9 @@ class BatchKernel:
         zu = st.zu + alpha_z * d.zu
         zp = R.zp + alpha_z * R.dzp
         zn = R.zn + alpha_z * R.dzn
+        f_R, zl, zu, zp, zn = self.single._accept_RR(
+            R, x, st.xl, st.xu, zl, zu, zp, zn, mu_R, self._t(R.zeta))
         pp, nn = R.pp_trial, R.nn_trial
-        f_R = self._t(R.zeta)[:, None] * R.D_R**2 * (x - R.x_ref)
-        dl, du_ = self.slacks(x, st.xl, st.xu)
-        zl = K.reset_bound_dual(zl, dl, lb, mu[:, 0], o.kappa_sigma)
-        zu = K.reset_bound_dual(zu, du_, ub, mu[:, 0], o.kappa_sigma)
-        pp_safe = torch.where(pp > 0, pp, 1.0)
-        nn_safe = torch.where(nn > 0, nn, 1.0)
-        ks_mu = o.kappa_sigma * mu
-        zp = torch.maximum(torch.minimum(zp, ks_mu / pp_safe),
-                           mu / (o.kappa_sigma * pp_safe))
-        zn = torch.maximum(torch.minimum(zn, ks_mu / nn_safe),
-                           mu / (o.kappa_sigma * nn_safe))
         mu_t = self._t(st.mu)
         xl, xu = K.adjust_boundary(x, st.xl, st.xu, lb, ub, mu_t)
         obj = self.eval_obj(st, x)

@@ -736,14 +736,10 @@ class Kernel:
         mu_R = max(st.mu, c_max)
         R.x_ref = st.x
         R.theta_ref = theta_ref
-        R.D_R = torch.clamp_max(1.0 / torch.clamp_min(st.x.abs(), 1e-300), 1.0)
         R.mu_R = mu_R
         R.tau_R = max(o.tau_min, 1.0 - mu_R)
         R.zeta = math.sqrt(mu_R)
-        R.nn = K.populate_RR_nn(c, mu_R, rho)
-        R.pp = c + R.nn
-        R.zp = mu_R / R.pp
-        R.zn = mu_R / R.nn
+        R.D_R, R.pp, R.nn, R.zp, R.zn = self._rr_slacks_init(st.x, c, mu_R)
         R.obj_val_R = float(K.get_obj_val_R(R.pp, R.nn, R.D_R, st.x, R.x_ref,
                                             rho, R.zeta))
         R.f_R = torch.zeros_like(st.x)
@@ -754,6 +750,20 @@ class Kernel:
         st.t_cnt = 0
         st.del_w = 0.0
         st.rr_init_needed = False
+
+    def _rr_slacks_init(self, x, c, mu):
+        """The proximal weights, the p/n slacks and their duals at the start
+        of robust restoration (restoration.jl:49-66).  ``mu`` is μ_R: a host
+        float, or a ``(B,)`` tensor in a batch, as for every ``_RR`` helper
+        below; ``BatchKernel`` calls them, so each formula lives here once.
+        torch divides ``float / tensor`` as the reciprocal times the float
+        and a lane column as a true quotient, so a batch lane and the
+        single solve may differ there in the last bit."""
+        D_R = torch.clamp_max(1.0 / torch.clamp_min(x.abs(), 1e-300), 1.0)
+        nn = K.populate_RR_nn(c, mu, self.opts.rho)
+        pp = c + nn
+        mu = K.as_col(mu)
+        return D_R, pp, nn, mu / pp, mu / nn
 
     def _update_monotone_RR(self, st: State, sc) -> None:
         """The restoration barrier's monotone decrease (barrier.jl:39-88)."""
@@ -777,9 +787,9 @@ class Kernel:
         R.mu_R, R.tau_R, R.zeta, R.filter = mu_R, tau_R, zeta, filt
 
     def _aug_rhs_RR(self, st: State, mu) -> KKTVec:
-        """set_aug_rhs_RR! (kernels.jl:133-158); ``mu`` is μ_R (a lane
-        column in a batch)."""
+        """set_aug_rhs_RR! (kernels.jl:133-158); ``mu`` is μ_R."""
         rho = self.opts.rho
+        mu = K.as_col(mu)
         R = st.RR
         dl, du_ = self.slacks(st.x, st.xl, st.xu)
         px = -R.f_R + st.zl - st.zu - st.jacl
@@ -792,6 +802,35 @@ class Kernel:
             zl=torch.where(self.lb, mu - dl * st.zl, 0.0),
             zu=torch.where(self.ub, du_ * st.zu - mu, 0.0),
         )
+
+    def _finish_aug_solve_RR(self, R, y, dy, mu):
+        """finish_aug_solve_RR (kernels.jl:251-257): the steps of the p/n
+        slacks and their duals, (dpp, dnn, dzp, dzn); ``mu`` is μ_R."""
+        rho, mu = self.opts.rho, K.as_col(mu)
+        dzp = rho - y - dy - R.zp
+        dzn = rho + y + dy - R.zn
+        dpp = -R.pp + mu / R.zp - (R.pp / R.zp) * dzp
+        dnn = -R.nn + mu / R.zn - (R.nn / R.zn) * dzn
+        return dpp, dnn, dzp, dzn
+
+    def _accept_RR(self, R, x, xl, xu, zl, zu, zp, zn, mu, zeta):
+        """The accepted robust step's proximal gradient and σ-clipped duals
+        (solver.jl:487-507), (f_R, zl, zu, zp, zn), at the trial point
+        ``x`` with the trial p/n slacks; ``mu`` is μ_R and ``zeta`` ζ."""
+        ks = self.opts.kappa_sigma
+        pp, nn = R.pp_trial, R.nn_trial
+        f_R = K.as_col(zeta) * R.D_R**2 * (x - R.x_ref)
+        dl, du_ = self.slacks(x, xl, xu)
+        zl = K.reset_bound_dual(zl, dl, self.lb, mu, ks)
+        zu = K.reset_bound_dual(zu, du_, self.ub, mu, ks)
+        mu = K.as_col(mu)
+        pp_safe = torch.where(pp > 0, pp, 1.0)
+        nn_safe = torch.where(nn > 0, nn, 1.0)
+        zp = torch.maximum(torch.minimum(zp, ks * mu / pp_safe),
+                           mu / (ks * pp_safe))
+        zn = torch.maximum(torch.minimum(zn, ks * mu / nn_safe),
+                           mu / (ks * nn_safe))
+        return f_R, zl, zu, zp, zn
 
     def filter_line_search_RR(self, st: State) -> State:
         """The restoration problem's filter line search
@@ -965,12 +1004,8 @@ class Kernel:
             st.status = int(S.RESTORATION_FAILED)
             return st
 
-        # finish_aug_solve_RR (kernels.jl:251-257)
-        rho, mu = o.rho, R.mu_R
-        R.dzp = rho - st.y - d.y - R.zp
-        R.dzn = rho + st.y + d.y - R.zn
-        R.dpp = -R.pp + mu / R.zp - (R.pp / R.zp) * R.dzp
-        R.dnn = -R.nn + mu / R.zn - (R.nn / R.zn) * R.dzn
+        R.dpp, R.dnn, R.dzp, R.dzn = self._finish_aug_solve_RR(
+            R, st.y, d.y, R.mu_R)
         self.filter_line_search_RR(st)
         if st.status != S.LINESEARCH_SUCCEEDED:
             return st
@@ -981,21 +1016,9 @@ class Kernel:
         zu = st.zu + st.alpha_z * d.zu
         zp = R.zp + st.alpha_z * R.dzp
         zn = R.zn + st.alpha_z * R.dzn
-        pp, nn = R.pp_trial, R.nn_trial
-        mu_R = R.mu_R
-        R.f_R = R.zeta * R.D_R**2 * (x - R.x_ref)
-        dl, du_ = self.slacks(x, st.xl, st.xu)
-        st.zl = K.reset_bound_dual(zl, dl, lb, mu_R, o.kappa_sigma)
-        st.zu = K.reset_bound_dual(zu, du_, ub, mu_R, o.kappa_sigma)
-        pp_safe = torch.where(pp > 0, pp, 1.0)
-        nn_safe = torch.where(nn > 0, nn, 1.0)
-        R.zp = torch.maximum(
-            torch.minimum(zp, o.kappa_sigma * mu_R / pp_safe),
-            mu_R / (o.kappa_sigma * pp_safe))
-        R.zn = torch.maximum(
-            torch.minimum(zn, o.kappa_sigma * mu_R / nn_safe),
-            mu_R / (o.kappa_sigma * nn_safe))
-        R.pp, R.nn = pp, nn
+        R.f_R, st.zl, st.zu, R.zp, R.zn = self._accept_RR(
+            R, x, st.xl, st.xu, zl, zu, zp, zn, R.mu_R, R.zeta)
+        R.pp, R.nn = R.pp_trial, R.nn_trial
         R.obj_val_R = R.obj_val_R_trial
         st.xl, st.xu = K.adjust_boundary(x, st.xl, st.xu, lb, ub, st.mu)
         obj = self.eval_obj(st, x)

@@ -228,8 +228,9 @@ class BandAssembly:
 
 
 def pivot_div(d):
-    """Pivot divisor: |d| <= ZERO_PIVOT_TOL divides as inf (a tensor, or
-    one pivot of a :func:`host_view`)."""
+    """Pivot divisor: |d| <= ZERO_PIVOT_TOL divides as inf.  ``d`` is a
+    tensor or one pivot read from a :func:`host_view`: the branch follows
+    the type that ``host_view`` chose, and never looks at a device."""
     if not torch.is_tensor(d):
         return math.inf if abs(d) <= ZERO_PIVOT_TOL else d
     return torch.where(d.abs() <= ZERO_PIVOT_TOL, math.inf, d)
@@ -237,9 +238,15 @@ def pivot_div(d):
 
 def host_view(t: torch.Tensor):
     """A CPU tensor's memory as a numpy array, any other tensor as it is.
-    The plain factorizations run their scalar recursions on it: on the
-    CPU numpy does the same IEEE operations in the same order at a
-    fraction of torch's cost per call, so the bits are the same."""
+
+    This is the one place where a plain version's scalar recursion forks
+    by device: every such recursion (``_corner_ldlt`` here,
+    ``ops/ldlt.py:ldlt_unblocked``, ``ops/dense_kernels.py``'s unit-lower
+    inverse) indexes the array this returns and nothing else, so there are
+    exactly two variants, numpy on the CPU and torch on the card.  numpy
+    does the same IEEE operations in the same order at a fraction of
+    torch's cost per call, so the bits are the same
+    (``tests/test_torch_banded.py::test_host_recursions_are_the_torch_steps_bit_for_bit``)."""
     return t.detach().numpy() if t.device.type == "cpu" else t
 
 

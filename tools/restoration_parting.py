@@ -27,6 +27,16 @@ solve from the initial point moved by ``--seed``'s ulps: how far one ulp
 carries the reference's own iterates over the same steps, the yardstick
 for the port's distance.
 
+``--pair batch`` runs the port alone, on ``--device`` in ``--dtype``: its
+single solve against the last lane of its ``solve_batch`` of the load
+scales ``--lanes`` and THETA (``BatchKernel.step``, K3/K4 on the card),
+both from the same initial point.  It also reports the first step after
+which the lane's iterate is no longer bit for bit the single solve's.
+This mode imports no JAX:
+
+    python3 tools/restoration_parting.py --pair batch --device cuda \
+        --dtype float32
+
 One JSON line per 25 steps while they agree, then the parting step's
 line.
 """
@@ -105,13 +115,135 @@ def _decision(kernel, st, opts):
     }
 
 
+def _lane(st, i):
+    """Lane ``i`` of a ``BatchState`` with the fields of a ``State``."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from madnlp_tpu_torch.ipm.kernels import Filter
+    from madnlp_tpu_torch.ipm.state import RRState
+
+    def one(v):
+        if isinstance(v, Filter):
+            return Filter(v.th[i], v.ph[i], int(v.count[i]))
+        if isinstance(v, RRState):
+            return types.SimpleNamespace(**{
+                f.name: one(getattr(v, f.name))
+                for f in dataclasses.fields(v)})
+        if isinstance(v, tuple):
+            return type(v)(*(one(a) for a in v))
+        if torch.is_tensor(v) or isinstance(v, np.ndarray):
+            a = v[i]
+            return a.item() if np.ndim(a) == 0 else a
+        return v
+
+    return types.SimpleNamespace(**{f.name: one(getattr(st, f.name))
+                                    for f in dataclasses.fields(st)})
+
+
+def _inexact(lane, st):
+    """The fields of a single ``State`` that lane ``lane`` does not hold
+    bit for bit, with their relative distance."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+
+    def cmp(name, a, b):
+        if torch.is_tensor(b):
+            a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+            if not torch.equal(a, b):
+                out[name] = _rel(a.cpu(), b.cpu())
+        elif isinstance(b, float) and a != b:
+            out[name] = abs(a - b) / max(abs(b), 1e-300)
+
+    for f in dataclasses.fields(st):
+        a, b = getattr(lane, f.name, None), getattr(st, f.name)
+        if f.name in ("d", "p"):
+            for g, u, v in zip(b._fields, a, b):
+                cmp(f"{f.name}.{g}", u, v)
+        elif f.name == "RR":
+            for g in dataclasses.fields(b):
+                cmp(f"RR.{g.name}", getattr(a, g.name), getattr(b, g.name))
+        elif a is not None:
+            cmp(f.name, a, b)
+    return out
+
+
+def batch_vs_single(args):
+    """The port's single solve against the THETA lane of its batch."""
+    import torch
+
+    import madnlp_tpu_torch as T
+    from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.utils.status import Status as S
+
+    model = opf.build_sparse(nb=args.nb, seed=0, parametric=True)
+    if args.seed:
+        model.x0 = ulp(model.x0, args.seed)
+    solver = T.MadNLPSolver(
+        model, device=args.device, linear_solver=T.LinearSolver.BANDED,
+        dtype=args.dtype, richardson=T.RichardsonOptions(mu_scaled=True),
+        print_level=T.PrintLevel.ERROR)
+    k, bk = solver.kernel, solver.batch_kernel
+    phase = {int(S.REGULAR): "g", int(S.RESTORE): "s", int(S.ROBUST): "r"}
+    step = {int(S.REGULAR): k.regular_step, int(S.RESTORE): k.restore_step,
+            int(S.ROBUST): k.robust_step}
+    scales = [float(v) for v in args.lanes.split(",")] + [args.theta]
+    sst = k.initialize(solver._params(args.theta))
+    bst = bk.initialize(torch.tensor(scales, dtype=torch.float64,
+                                     device=solver.device))
+    phases, i, first = "", 0, None
+    while int(sst.status) in step and int(bst.status[-1]) == int(sst.status):
+        p = phase[int(sst.status)]
+        sst = step[int(sst.status)](sst)
+        bst = bk.step(bst)
+        phases += p
+        lane = _lane(bst, -1)
+        dist = {"x": _rel(lane.x.cpu(), sst.x.cpu()),
+                "c": _rel(lane.c.cpu(), sst.c.cpu())}
+        if first is None and not (torch.equal(lane.x, sst.x)
+                                  and torch.equal(lane.y, sst.y)):
+            first = i
+            print(json.dumps({"first_inexact_step": i, "phase": p,
+                              "distance": dist,
+                              "fields": _inexact(lane, sst)}), flush=True)
+        if int(bst.status[-1]) != int(sst.status):
+            print(json.dumps({
+                "parting_step": i, "phase": p,
+                "next": {"single": S(int(sst.status)).name,
+                         "batch_lane": S(int(bst.status[-1])).name},
+                "distance": dist, "first_inexact_step": first,
+                "single": _decision(k, sst, solver.opts),
+                "batch_lane": _decision(k, lane, solver.opts),
+                "phases": phases}), flush=True)
+            return
+        if i % 25 == 0:
+            print(json.dumps({"step": i, "phase": p, "distance": dist}),
+                  flush=True)
+        i += 1
+    print(json.dumps({"no_parting": True, "steps": i, "phases": phases,
+                      "first_inexact_step": first,
+                      "single": S(int(sst.status)).name,
+                      "batch_lane": S(int(bst.status[-1])).name}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nb", type=int, default=600)
     ap.add_argument("--theta", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--pair", choices=("port", "jax"), default="port")
+    ap.add_argument("--pair", choices=("port", "jax", "batch"),
+                    default="port")
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--dtype", default="float64")
+    ap.add_argument("--lanes", default="1.0,1.04")
     args = ap.parse_args()
+    if args.pair == "batch":
+        return batch_vs_single(args)
 
     import jax
 
