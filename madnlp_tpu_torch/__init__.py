@@ -28,8 +28,10 @@ from .models.model import (  # noqa: E402
     create_model,
 )
 from .utils.options import (  # noqa: E402
+    BarrierUpdate,
     EqualityTreatment,
     FixedVariableTreatment,
+    HessianApproximation,
     InertiaCorrection,
     KKTSystem,
     LinearSolver,
@@ -48,7 +50,8 @@ from .ipm.solver import (  # noqa: E402
 __all__ = [
     "create_model", "DenseNLPModel", "NLPModel", "SparseNLPModel",
     "MadNLPOptions", "KKTSystem", "LinearSolver",
-    "InertiaCorrection", "FixedVariableTreatment", "EqualityTreatment",
+    "InertiaCorrection", "BarrierUpdate", "HessianApproximation",
+    "FixedVariableTreatment", "EqualityTreatment",
     "PrintLevel", "RichardsonOptions", "Status", "is_success",
     "MadNLPSolver", "ExecutionStats", "madnlp", "batch_summary",
 ]

@@ -38,10 +38,12 @@ import torch
 
 from ..models.model import to_tensor
 from .kernels import as_col
-from ..ops.segment import segment_map, segment_max
+from .quasi_newton import lowrank_zeros
+from ..ops.segment import segment_map, segment_max, segment_sum
 from ..utils.options import (
     EqualityTreatment,
     FixedVariableTreatment,
+    HessianApproximation,
     MadNLPOptions,
 )
 
@@ -178,6 +180,21 @@ class Problem:
             J = torch.where(self.t.fixed[None, :], 0.0, J)
         return torch.cat([J, self.t.slack_e], 1)
 
+    def eval_jtprod_x(self, scal: Scaling, x, y, theta=None):
+        """(n,) J(x)ᵀ y in the scaled space, by a vector-Jacobian product
+        of the constraints (the quasi-Newton secant, nlpmodels.jl:790-800)."""
+        if self.m == 0:
+            return x.new_zeros(self.n)
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            (jt,) = torch.autograd.grad(
+                self._call(self.model.cons, xx, theta=theta), xx,
+                grad_outputs=y * scal.con_scale)
+        jt = jt.detach()
+        if self.fixed_mask.any():
+            jt = torch.where(self.t.fixed, 0.0, jt)
+        return jt
+
     def eval_lag_hess(self, scal: Scaling, w, y, theta=None,
                       is_resto: bool = False):
         """(n, n) Lagrangian Hessian in the scaled space."""
@@ -245,6 +262,7 @@ class SparseProblem(Problem):
             xl_fixed=self.xl_fixed,
             jac_rows=mdl.jac_rows,
             jac_fixed=fm[mdl.jac_cols],
+            col_table=segment_map(mdl.jac_cols, self.n),
             hess_fixed=fm[hr] | fm[hc],
             hess_unit=(hr == hc) & fm[hr],
             row_table=segment_map(mdl.jac_rows, self.m),
@@ -259,6 +277,16 @@ class SparseProblem(Problem):
             vals = torch.where(self.t.jac_fixed, 0.0, vals)
         return torch.cat([vals, vals.new_full(vals.shape[:-1] + (self.ns,),
                                               -1.0)], -1)
+
+    def eval_jtprod_x(self, scal: Scaling, x, y, theta=None):
+        """(n,) J(x)ᵀ y in the scaled space from the Jacobian's values (the
+        quasi-Newton secant)."""
+        vals = self._call(self.model.jac_coords, x, theta=theta)
+        ys = y * scal.con_scale
+        out = segment_sum(vals * ys[self.t.jac_rows], self.t.col_table)
+        if self.fixed_mask.any():
+            out = torch.where(self.t.fixed, 0.0, out)
+        return out
 
     def eval_lag_hess(self, scal: Scaling, w, y, theta=None,
                       is_resto: bool = False):
@@ -301,6 +329,14 @@ class SparseProblem(Problem):
         return self.zeros(self.nnzj_aug)
 
     def hess_template(self, lanes: int = None):
+        """The Hessian's zero values; under compact L-BFGS (one solve) the
+        zero :class:`.quasi_newton.LowRankHessian`, whose diagonal the KKT
+        system assembles and whose low-rank part it applies by SMW."""
+        if (lanes is None and self.opts.hessian_approximation
+                == HessianApproximation.COMPACT_LBFGS):
+            return lowrank_zeros(self.n,
+                                 self.opts.quasi_newton_options.max_history,
+                                 self.device)
         lead = () if lanes is None else (lanes,)
         return self.zeros(*lead, len(self.hess_rows))
 

@@ -30,7 +30,15 @@ from ..kkt.dense import DenseKKT
 from ..kkt.sparse import SparseKKT
 from ..ops.banded import kkt_interleaved_ordering
 from ..utils import log as logfmt
-from ..utils.options import KKTSystem, LinearSolver, MadNLPOptions, PrintLevel
+from ..utils.options import (
+    BarrierUpdate,
+    HessianApproximation,
+    InertiaCorrection,
+    KKTSystem,
+    LinearSolver,
+    MadNLPOptions,
+    PrintLevel,
+)
 from ..utils.status import Status, get_status_output
 from . import kernels as K
 from .batch import BatchKernel
@@ -85,6 +93,12 @@ class MadNLPSolver:
                  device=None, **kwargs):
         self.device = resolve_device(device)
         opts = options if options is not None else MadNLPOptions.create(**kwargs)
+        if opts.kkt_system == KKTSystem.SCALED_SPARSE:
+            # K2.5 (ScaledSparseKKTSystem, scaled_augmented.jl) is the
+            # augmented system under the analytic √Ξ congruence scaling:
+            # the SPARSE system with kkt_scaling="k25"
+            opts = dataclasses.replace(opts, kkt_system=KKTSystem.SPARSE,
+                                       kkt_scaling="k25")
         resolved = opts.resolve(dense_callback=model.is_dense, m=model.m)
         kkt_sys = resolved.kkt_system
         dense_kkt = kkt_sys in (KKTSystem.DENSE, KKTSystem.DENSE_CONDENSED)
@@ -119,6 +133,12 @@ class MadNLPSolver:
         else:
             # dense callbacks use dense storage for the SPARSE system too
             kkt = DenseKKT(p, self.opts)
+        if p.is_sparse and self.opts.hessian_approximation in (
+                HessianApproximation.BFGS, HessianApproximation.DAMPED_BFGS):
+            raise NotImplementedError(
+                "full-memory BFGS requires dense Hessian storage; use "
+                "COMPACT_LBFGS (low-rank + SMW over the sparse KKT) or the "
+                "dense callback path (model.to_dense())")
         self.kernel = Kernel(p, self.opts, kkt)
         self.batch_kernel = BatchKernel(self.kernel)
         self._output_fh = None
@@ -305,13 +325,28 @@ class MadNLPSolver:
         waits unchanged (:meth:`.batch.BatchKernel.step`).
 
         Returns the final :class:`BatchState` in the original lane order;
-        summary arrays via :func:`batch_summary`.  ``sharding`` raises
-        NotImplementedError (a later slice of the port)."""
+        summary arrays via :func:`batch_summary`.  ``sharding``, and the
+        step options the batch does not implement (a barrier rule other
+        than monotone, a quasi-Newton Hessian, the inertia-free or
+        inertia-ignoring correction, GMRES, K2.5 scaling), raise
+        NotImplementedError (later slices of the port)."""
         if sharding is not None:
             raise _later("sharding= (a multi-device solve_batch)")
         if not getattr(self.kernel.kkt, "banded", False):
             raise _later("solve_batch with dense KKT storage or a "
                          "dense-callback model")
+        o = self.opts
+        for name, value, default in (
+                ("barrier", o.barrier, BarrierUpdate.MONOTONE),
+                ("hessian_approximation", o.hessian_approximation,
+                 HessianApproximation.EXACT),
+                ("inertia_correction_method", self.kernel.inertia_method,
+                 InertiaCorrection.BASED),
+                ("iterator", o.iterator, "richardson")):
+            if value != default:
+                raise _later(f"{name}={value} in solve_batch")
+        if o.kkt_scaling == "k25":
+            raise _later("kkt_scaling='k25' in solve_batch")
         theta = torch.as_tensor(np.asarray(params_batch, dtype=np.float64),
                                 device=self.device)
         B = int(theta.shape[0])

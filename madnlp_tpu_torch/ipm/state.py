@@ -1,5 +1,4 @@
-"""Solver state of the PyTorch port — ``madnlp_tpu/ipm/state.py:State``
-without the quasi-Newton memory and the persisted KKT context.
+"""Solver state of the PyTorch port — ``madnlp_tpu/ipm/state.py:State``.
 
 Vectors are float64 tensors on the solver's device; scalars (barrier,
 residuals, step sizes, regularization) are host floats and counters host
@@ -7,6 +6,12 @@ ints, because the port's iteration makes its decisions on the host.  The
 state is updated in place by the step functions.  :class:`RRState` is the
 robust (ℓ1-penalty) restoration phase's part, ``State.RR``; the soft
 restoration's backups and error ``soft_F`` are fields of :class:`State`.
+``hess`` is the Hessian's values, its (n, n) matrix or, under compact
+L-BFGS on a sparse KKT system, a :class:`.quasi_newton.LowRankHessian`;
+``qn`` is the quasi-Newton memory, ``barrier_free_mode`` the adaptive
+barrier's mode, and ``ctx`` the KKT context of the last factorization,
+which only an adaptive barrier reads (its probing solves; None under the
+monotone rule).
 
 :func:`state_from_arrays` builds a state from the JAX package's ``State``
 converted to numpy, so one iteration can be run in both packages from the
@@ -19,7 +24,10 @@ plus ``theta``, the lanes' model parameters.  Its restoration part is the
 same as one solve's with a lane axis: the soft restoration's backups
 ``(B, ·)``, ``soft_F`` and ``rr_init_needed`` ``(B,)``, and ``RR`` an
 :class:`RRState` whose vectors are ``(B, ·)``, whose scalars are ``(B,)``
-numpy arrays and whose filter is ``(B, capacity)``.
+numpy arrays and whose filter is ``(B, capacity)``.  A batch runs the
+exact Hessian and the monotone barrier only (``solve_batch`` refuses the
+other step options), so it has no ``qn``, ``barrier_free_mode`` or
+``ctx``.
 :meth:`BatchState.take`, :func:`split_lanes` and :func:`stack_lanes`
 reorder, chunk and rejoin lanes; :func:`batch_state_from_arrays` carries a
 batch of JAX states across.
@@ -35,6 +43,7 @@ import torch
 from ..kkt.vec import KKTVec, kkt_zeros
 from .kernels import Filter, filter_init, filter_stack
 from .problem import Scaling
+from .quasi_newton import LowRankHessian, QNState, qn_zeros
 
 
 @dataclasses.dataclass
@@ -103,7 +112,8 @@ class State:
     f: torch.Tensor
     c: torch.Tensor
     jac: torch.Tensor       # (nnzj + ns,) values, or the (m, nw) matrix
-    hess: torch.Tensor      # (nnzh,) values, or the (n, n) matrix
+    hess: object            # (nnzh,) values, the (n, n) matrix, or a
+    #                         LowRankHessian (compact L-BFGS, sparse KKT)
     jacl: torch.Tensor      # (nw,) Aᵀy
     # trial point
     x_trial: torch.Tensor
@@ -157,17 +167,26 @@ class State:
     # robust restoration
     RR: RRState = None
     rr_init_needed: bool = False   # ROBUST entered, restorer not set up yet
+    # adaptive barrier: free mode (True) or its monotone fallback
+    barrier_free_mode: bool = True
     theta: object = None    # the model's parameters (parametric models)
+    # quasi-Newton memory (p = 0 columns unless compact L-BFGS)
+    qn: QNState = None
+    # the KKT context of the last factorization (adaptive barriers only)
+    ctx: object = None
     # iteration-log snapshot taken at the reference's print_iter position:
     # k, obj, inf_pr, inf_du, inf_compl, mu, del_w, alpha, ir, ls, ftype,
     # is_resto
     log_row: list = dataclasses.field(default_factory=lambda: [0.0] * 12)
 
 
-def state_zeros(nw: int, m: int, jac: torch.Tensor, hess: torch.Tensor,
-                filter_capacity: int, device) -> State:
+def state_zeros(nw: int, m: int, jac: torch.Tensor, hess,
+                filter_capacity: int, device, n: int = 0,
+                qn_mem: int = 0) -> State:
     """A zero state; ``jac`` and ``hess`` are the problem's templates (value
-    vectors for a sparse problem, matrices for a dense one)."""
+    vectors for a sparse problem, matrices for a dense one, a
+    LowRankHessian under compact L-BFGS on a sparse one), ``n`` the number
+    of variables and ``qn_mem`` the quasi-Newton memory's columns."""
     def z(k):
         return torch.zeros((k,), dtype=torch.float64, device=device)
 
@@ -181,13 +200,15 @@ def state_zeros(nw: int, m: int, jac: torch.Tensor, hess: torch.Tensor,
         scal=Scaling(1.0, torch.ones((m,), dtype=torch.float64, device=device)),
         backup_x=z(nw), backup_y=z(m), backup_c=z(m),
         RR=rr_zeros(nw, m, filter_capacity, device),
+        qn=qn_zeros(n, qn_mem, device),
     )
 
 
 _RR_FLOATS = ("obj_val_R", "theta_ref", "obj_val_R_trial", "inf_pr_R",
               "inf_du_R", "inf_compl_R", "mu_R", "tau_R", "zeta")
 _VECTORS = ("x", "y", "zl", "zu", "xl", "xu", "f", "c", "jac", "hess", "jacl",
-            "x_trial", "c_trial")
+            "x_trial", "c_trial")   # the batch's tensors; one state's "hess"
+#                                     may be a LowRankHessian instead
 _FLOATS = ("obj_val", "obj_val_trial", "mu", "tau", "theta_max", "theta_min",
            "del_w", "del_c", "del_w_last", "inf_pr", "inf_du", "inf_compl",
            "inf_compl_mu", "alpha", "alpha_z")
@@ -205,8 +226,15 @@ def state_from_arrays(d: dict, device) -> State:
     ``"scal.con_scale"``, and ``"log_row"``.  The restoration leaves
     (``"backup_x"``, ``"backup_y"``, ``"backup_c"``, ``"soft_F"``,
     ``"rr_init_needed"`` and ``"RR.<field>"``, ``"RR.filter.th"``…) are
-    read where present and zero otherwise.  Other keys are ignored (the
-    quasi-Newton and persisted-context leaves have no counterpart)."""
+    read where present and zero otherwise.  The low-rank Hessian of compact
+    L-BFGS on a sparse problem comes as ``"hess.diag"``, ``"hess.U"``,
+    ``"hess.V"`` in place of ``"hess"``; the quasi-Newton memory as
+    ``"qn.<field>"`` and the adaptive barrier's mode as
+    ``"barrier_free_mode"``, each read where present (an empty memory and
+    free mode otherwise).  The JAX package's persisted KKT context
+    (``"ctx.*"``) is not read: the port keeps its own factor there, which
+    an adaptive barrier's probing solves take from the previous
+    factorization."""
 
     def vec(a):
         return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
@@ -218,7 +246,9 @@ def state_from_arrays(d: dict, device) -> State:
             int(d[f"{prefix}.count"]),
         )
 
-    fields = {k: vec(d[k]) for k in _VECTORS}
+    fields = {k: vec(d[k]) for k in _VECTORS if k != "hess"}
+    fields["hess"] = (vec(d["hess"]) if "hess" in d else LowRankHessian(
+        *(vec(d[f"hess.{k}"]) for k in LowRankHessian._fields)))
     fields.update({k: float(d[k]) for k in _FLOATS})
     fields.update({k: int(d[k]) for k in _INTS})
     for name in ("d", "p"):
@@ -230,6 +260,16 @@ def state_from_arrays(d: dict, device) -> State:
     fields["log_row"] = [float(v) for v in np.asarray(d["log_row"])]
     st = State(**fields)
     nw, m = st.x.shape[0], st.y.shape[0]
+    st.barrier_free_mode = bool(d.get("barrier_free_mode", True))
+    if "qn.Sk" in d:
+        st.qn = QNState(
+            *(vec(d[f"qn.{k}"]) for k in QNState._fields[:5]),
+            mem=int(d["qn.mem"]), skipped=int(d["qn.skipped"]),
+            instantiated=bool(d["qn.instantiated"]))
+    else:
+        # an exact-Hessian state: the memory is never read
+        st.qn = qn_zeros(st.hess.shape[0] if st.hess.ndim == 2 else nw, 0,
+                         device)
     for k, size in (("backup_x", nw), ("backup_y", m), ("backup_c", m)):
         setattr(st, k, vec(d[k]) if k in d else st.x.new_zeros(size))
     st.soft_F = float(d.get("soft_F", 0.0))

@@ -3,8 +3,9 @@
 * ``initialize`` with least-squares duals (solver.jl:14-97), and
   ``reinitialize`` for a warm start (solver.jl:99-117);
 * ``regular_step`` = one iteration of ``regular!`` (solver.jl:216-298):
-  monotone barrier update, inertia-based δ regularization, filter line
-  search with second-order correction;
+  barrier update (monotone, or the adaptive rules of :mod:`.barrier`),
+  δ regularization (inertia-based, inertia-free or inertia-ignoring),
+  filter line search with second-order correction;
 * ``restore_step`` = one iteration of soft restoration, ``restore!``
   (solver.jl:300-411);
 * ``robust_step`` = one iteration of robust (ℓ1-penalty) restoration,
@@ -18,6 +19,13 @@ reads the few scalars each decision needs (grouped into one read where
 the JAX code computes them together) and updates the :class:`State` in
 place.  The restoration phases factor through the same KKT system, and so
 the same kernels, as the regular phase.
+
+The Hessian is the model's exact one, or a quasi-Newton approximation
+(:mod:`.quasi_newton`: BFGS, damped BFGS, compact L-BFGS) refreshed from
+the secant pair at each evaluation point (``_refresh_hessian``).  Under an
+adaptive barrier the state keeps the last factorization's KKT context
+(``State.ctx``) for the next iteration's probing solves; under the
+monotone rule it keeps none.
 """
 
 from __future__ import annotations
@@ -36,12 +44,24 @@ from ..utils.options import (
 )
 from ..utils.status import Status as S
 from . import kernels as K
+from .barrier import update_barrier_adaptive
 from .problem import Problem
+from .quasi_newton import (
+    bfgs_update,
+    init_hessian_dense,
+    init_hessian_lowrank,
+    lbfgs_update,
+    lbfgs_update_compact,
+)
 from .state import State, state_zeros
 
 
-def _later(what: str):
-    return NotImplementedError(f"{what} comes in a later slice of the port")
+def _all_finite(v) -> torch.Tensor:
+    """Whether every entry of a tensor, or of each tensor of a tuple (a
+    LowRankHessian), is finite (a device bool)."""
+    if isinstance(v, tuple):
+        return torch.stack([torch.isfinite(a).all() for a in v]).all()
+    return torch.isfinite(torch.as_tensor(v)).all()
 
 
 class Kernel:
@@ -60,18 +80,75 @@ class Kernel:
         self.ub = t(prob.ub_mask)
         self.llb = t(prob.llb_mask)
         self.uub = t(prob.uub_mask)
+        # Auto -> Based if the linear solver exposes inertia, else Free
+        # (IPM.jl:203-213)
         m = opts.inertia_correction_method
         if m == InertiaCorrection.AUTO:
             m = (InertiaCorrection.BASED if kkt.has_inertia()
                  else InertiaCorrection.FREE)
-        if m != InertiaCorrection.BASED:
-            raise _later(f"inertia_correction_method={m}")
-        if opts.barrier != BarrierUpdate.MONOTONE:
-            raise _later(f"barrier={opts.barrier}")
-        if opts.hessian_approximation != HessianApproximation.EXACT:
-            raise _later(f"hessian_approximation={opts.hessian_approximation}")
         self.inertia_method = m
         self.eps = float(torch.finfo(torch.float64).eps)
+        # only the adaptive barriers' probing solves read the persisted
+        # context (the previous factorization); the monotone rule keeps none
+        self._persist_ctx = opts.barrier != BarrierUpdate.MONOTONE
+        self.hess_approx = opts.hessian_approximation
+        self.qn_mem = (opts.quasi_newton_options.max_history
+                       if self.hess_approx == HessianApproximation.COMPACT_LBFGS
+                       else 0)
+
+    def persist_context(self, ctx):
+        """The KKT context kept in ``State.ctx``: the factorization's under
+        an adaptive barrier (its probing solves reuse the stale factor; the
+        f64 operator band, read only by the same iteration's refinement, is
+        dropped), None under the monotone rule."""
+        if not self._persist_ctx:
+            return None
+        return ctx._replace(factor=ctx.factor._replace(opband=None))
+
+    # ------------------------------------------------------------------
+    # quasi-Newton / exact Hessian refresh (callbacks.jl:145-190)
+    # ------------------------------------------------------------------
+
+    def _refresh_hessian(self, st: State, is_resto: bool = False) -> None:
+        """The Hessian at the current point: the model's (counted in
+        ``hess_cnt``), or the quasi-Newton update from the secant pair
+        (s, y) = (Δx, Δ∇ₓL) since the last refresh; before the first
+        gradient pair exists (grad_cnt < 2), the Gilbert–Lemaréchal
+        start."""
+        p, o = self.prob, self.opts
+        if self.hess_approx == HessianApproximation.EXACT:
+            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta,
+                                      is_resto=is_resto)
+            st.hess_cnt += 1
+            return
+        n = p.n
+        qn = st.qn
+        if st.grad_cnt >= 2:
+            sk = st.x[:n] - qn.last_x
+            yk = st.f[:n] - qn.last_g
+            if p.m > 0:
+                yk = yk + st.jacl[:n]
+                yk = yk - p.eval_jtprod_x(st.scal, qn.last_x, st.y, st.theta)
+            if self.hess_approx == HessianApproximation.COMPACT_LBFGS:
+                update = lbfgs_update_compact if p.is_sparse else lbfgs_update
+                st.hess, qn = update(st.hess, qn, sk, yk,
+                                     o.quasi_newton_options)
+            else:
+                st.hess, qn = bfgs_update(
+                    st.hess, qn, sk, yk,
+                    damped=self.hess_approx == HessianApproximation.DAMPED_BFGS)
+        else:
+            st.hess = self._init_hessian(st.hess, st.f[:n], st.obj_val)
+        st.qn = qn._replace(last_x=st.x[:n], last_g=st.f[:n])
+
+    def _init_hessian(self, hess, g0, f0: float):
+        """The Gilbert–Lemaréchal start (quasi_newton.jl:194-206): the
+        low-rank form's diagonal over a sparse KKT system, a scaled
+        identity over a dense one."""
+        p, qo = self.prob, self.opts.quasi_newton_options
+        if p.is_sparse:
+            return init_hessian_lowrank(hess, g0, f0, qo.init_value)
+        return init_hessian_dense(p.n, g0, f0, qo.init_value)
 
     # ------------------------------------------------------------------
     # helpers
@@ -132,8 +209,11 @@ class Kernel:
         template a checkpoint loads into)."""
         p = self.prob
         st = state_zeros(p.nw, p.m, p.jac_template(), p.hess_template(),
-                         self.opts.filter_capacity, p.device)
+                         self.opts.filter_capacity, p.device, n=p.n,
+                         qn_mem=self.qn_mem)
         st.theta = theta
+        if self._persist_ctx:
+            st.ctx = self.kkt.zero_context()
         return st
 
     def initialize(self, theta=None) -> State:
@@ -185,18 +265,25 @@ class Kernel:
         st.f = p.eval_grad(scal, w0, theta)
         obj = p.eval_obj(scal, w0, theta)
         st.c = p.eval_cons(scal, w0, theta)
-        st.hess = p.eval_lag_hess(scal, w0, y0, theta)
         st.jacl = self.kkt.jtprod(st.jac, y0)
-        st.obj_cnt = st.grad_cnt = st.con_cnt = st.jac_cnt = st.hess_cnt = 1
+        st.obj_cnt = st.grad_cnt = st.con_cnt = st.jac_cnt = 1
+        if self.hess_approx == HessianApproximation.EXACT:
+            st.hess = p.eval_lag_hess(scal, w0, y0, theta)
+            st.hess_cnt = 1
+        else:
+            st.hess = self._init_hessian(st.hess, st.f[:n],
+                                         float(obj.to(torch.float64)))
+            st.qn = st.qn._replace(last_x=w0[:n], last_g=st.f[:n])
 
         if (not o.dual_initialized
                 and o.dual_initialization_method == DualInitialization.LEAST_SQUARES
                 and p.m > 0):
-            st.y = self._least_squares_duals(st)
+            st.y, ls_ctx = self._least_squares_duals(st)
+            st.ctx = self.persist_context(ls_ctx)
             st.jacl = self.kkt.jtprod(st.jac, st.y)
 
         finite = torch.stack([
-            torch.isfinite(v).all() for v in (st.hess, st.jac, st.c, st.f, obj)
+            _all_finite(v) for v in (st.hess, st.jac, st.c, st.f, obj)
         ]).tolist()
         theta, st.obj_val = torch.stack([K.get_theta(st.c),
                                          obj.to(torch.float64)]).tolist()
@@ -237,8 +324,9 @@ class Kernel:
         st.grad_cnt += 1
         st.con_cnt += 1
         st.jac_cnt += 1
-        st.hess = p.eval_lag_hess(st.scal, x, st.y, theta)
-        st.hess_cnt += 1
+        if self.hess_approx == HessianApproximation.EXACT:
+            st.hess = p.eval_lag_hess(st.scal, x, st.y, theta)
+            st.hess_cnt += 1
         theta_c, st.obj_val = torch.stack([K.get_theta(st.c),
                                            obj.to(torch.float64)]).tolist()
         st.theta_max = 1e4 * max(1.0, theta_c)
@@ -256,7 +344,8 @@ class Kernel:
     def _least_squares_duals(self, st: State):
         """Solve [I Aᵀ; A 0] with rhs (-∇f + zl - zu, 0) and take the dual
         part, dropped if ‖·‖∞ > constr_mult_init_max (solver.jl:86-97).
-        This factorization is not counted in ``factorization_cnt``."""
+        This factorization is not counted in ``factorization_cnt``.
+        Returns the duals and the factorization's context."""
         p = self.prob
         ones = p.zeros(p.nw) + 1.0
         ctx = self.kkt.build_and_factorize(
@@ -268,11 +357,20 @@ class Kernel:
                      zl=p.zeros(p.nw), zu=p.zeros(p.nw))
         d, ok, _ = self.kkt.solve_refine(ctx, rhs)
         too_big = float(d.y.abs().max()) > self.opts.constr_mult_init_max
-        return d.y if ok and not too_big else p.zeros(p.m)
+        return (d.y if ok and not too_big else p.zeros(p.m)), ctx
 
     # ------------------------------------------------------------------
-    # barrier update (monotone; barrier.jl:12-34)
+    # barrier update (monotone, barrier.jl:12-34; adaptive: barrier.py)
     # ------------------------------------------------------------------
+
+    def update_barrier(self, st: State, sc):
+        b = self.opts.barrier
+        if b == BarrierUpdate.MONOTONE:
+            return self.update_barrier_monotone(st, sc)
+        return update_barrier_adaptive(
+            self, st, sc,
+            "quality_function" if b == BarrierUpdate.QUALITY_FUNCTION
+            else "loqo")
 
     def update_barrier_monotone(self, st: State, sc):
         o = self.opts
@@ -343,32 +441,30 @@ class Kernel:
                         else o.perturb_inc_fact)
 
     def inertia_correction(self, st: State, p_rhs: KKTVec, rr: bool = False):
-        """Returns (ctx, d, success); counters and δs land in ``st``.
-        ``rr``: the robust-restoration system, whose solves keep the exact
-        refinement tolerance and whose δ_c follows μ_R."""
+        """The δ regularization ladder (solver.jl:611-737) under the
+        resolved inertia strategy.  Returns (ctx, d, success); counters and
+        δs land in ``st``.  ``rr``: the robust-restoration system, whose
+        solves keep the exact refinement tolerance and whose δ_c follows
+        μ_R."""
         o = self.opts
-        # restoration solves rank-deficient geometry where step accuracy
-        # decides feasibility recovery: keep the exact tolerance
-        mu_refine = None if rr else st.mu
+        if self.inertia_method == InertiaCorrection.BASED:
+            def attempt(del_w, del_c):
+                return self._attempt_based(st, p_rhs, rr, del_w, del_c)
+        elif self.inertia_method == InertiaCorrection.IGNORE:
+            def attempt(del_w, del_c):
+                return self._attempt_ignore(st, p_rhs, rr, del_w, del_c)
+        else:
+            g, p0 = self._free_test_data(st, rr)
+
+            def attempt(del_w, del_c):
+                return self._attempt_free(st, p_rhs, rr, del_w, del_c, g, p0)
         mu = st.RR.mu_R if rr else st.mu
-
-        def attempt(del_w, del_c):
-            ctx = self._factorize(st, del_w, del_c, rr=rr)
-            pos, nzero, neg = self.kkt.inertia(ctx)
-            ok_inertia = self.kkt.is_inertia_correct(pos, nzero, neg)
-            # the solve runs (and is counted) whatever the inertia, as in
-            # the JAX package
-            d, solved, iters = self.kkt.solve_refine(ctx, p_rhs, mu=mu_refine)
-            st.factorization_cnt += 1
-            st.backsolve_cnt += iters
-            st.last_ir = iters
-            return ctx, d, ok_inertia and solved, nzero
-
         ctx, d, ok, nzero = attempt(0.0, 0.0)
         n_trial, del_w, del_c, fail = 0, 0.0, 0.0, False
         while not ok and not fail:
             del_w = self._next_del_w(n_trial, del_w, st.del_w_last)
-            # δ_c on rank-deficient Jacobian (num_zero != 0)
+            # δ_c on a rank-deficient Jacobian (zero pivots); the strategies
+            # that see no inertia (nzero None) take it on every retry
             del_c = (o.jacobian_regularization_value
                      * mu**o.jacobian_regularization_exponent
                      if nzero != 0 else 0.0)
@@ -382,6 +478,65 @@ class Kernel:
         if del_w != 0.0:
             st.del_w_last = del_w
         return ctx, d, ok and not fail
+
+    def _ladder_solve(self, st: State, ctx, rhs: KKTVec, rr: bool):
+        """A refined solve of the ladder, (d, solved, sweeps).  Restoration
+        solves rank-deficient geometry where step accuracy decides
+        feasibility recovery, so its solves keep the exact tolerance."""
+        return self.kkt.solve_refine(ctx, rhs, mu=None if rr else st.mu)
+
+    def _count(self, st: State, iters: int) -> None:
+        st.factorization_cnt += 1
+        st.backsolve_cnt += iters
+        st.last_ir = iters
+
+    def _attempt_based(self, st, p_rhs, rr, del_w, del_c):
+        """Factor and solve; success needs the inertia (num_pos == nw, no
+        zero pivot) and the solve.  The solve runs, and is counted,
+        whatever the inertia, as in the JAX package."""
+        ctx = self._factorize(st, del_w, del_c, rr=rr)
+        pos, nzero, neg = self.kkt.inertia(ctx)
+        d, solved, iters = self._ladder_solve(st, ctx, p_rhs, rr)
+        self._count(st, iters)
+        return (ctx, d, self.kkt.is_inertia_correct(pos, nzero, neg)
+                and solved, nzero)
+
+    def _attempt_ignore(self, st, p_rhs, rr, del_w, del_c):
+        """Factor and solve; success is the solve's alone."""
+        ctx = self._factorize(st, del_w, del_c, rr=rr)
+        d, solved, iters = self._ladder_solve(st, ctx, p_rhs, rr)
+        self._count(st, iters)
+        return ctx, d, solved, None
+
+    def _free_test_data(self, st: State, rr: bool):
+        """The inertia-free test's gradient g_ifr (kernels.jl:242-248) and
+        the right-hand side (0, -c, 0, 0) of its normal step."""
+        p = self.prob
+        dl, du_ = self.slacks(st.x, st.xl, st.xu)
+        mu = st.RR.mu_R if rr else st.mu
+        g = (st.f - torch.where(self.lb, mu / dl, 0.0)
+             + torch.where(self.ub, mu / du_, 0.0) + st.jacl)
+        p0 = KKTVec(xp=p.zeros(p.nw), y=-st.c, zl=p.zeros(p.nw),
+                    zu=p.zeros(p.nw))
+        return g, p0
+
+    def _attempt_free(self, st, p_rhs, rr, del_w, del_c, g, p0):
+        """Factor, solve the normal step d₀ and the full step d, and test
+        the curvature of t = d - d₀ (solver.jl:672-737, curv_test
+        :785-788): tᵀWt + max(0, tᵀW d₀ - gᵀd₀) - tol·tᵀt ≥ 0, with
+        W = (∇²L + Σ) through ``mul_hess_blk``."""
+        ctx = self._factorize(st, del_w, del_c, rr=rr)
+        d0, ok0, it0 = self._ladder_solve(st, ctx, p0, rr)
+        d, ok1, it1 = self._ladder_solve(st, ctx, p_rhs, rr)
+        self._count(st, it0 + it1)
+        t = d.xp - d0.xp
+        wx = self.kkt.mul_hess_blk(ctx, t)
+        tWt, tWd0, gd0, tt = torch.stack([
+            torch.dot(wx, t), torch.dot(wx, d0.xp), torch.dot(g, d0.xp),
+            torch.dot(t, t)]).tolist()
+        curv_ok = (tWt + max(tWd0 - gd0, 0.0)
+                   - self.opts.inertia_free_tol * tt) >= 0.0
+        return ctx, d, ok0 and ok1 and curv_ok, None
 
     # ------------------------------------------------------------------
     # second-order correction (solver.jl:547-608)
@@ -593,12 +748,13 @@ class Kernel:
 
         # Hessian refresh
         if not o.hessian_constant and st.k > 0:
-            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta)
-            st.hess_cnt += 1
-        self.update_barrier_monotone(st, sc)
+            self._refresh_hessian(st)
+        # (an adaptive rule's probing solves reuse st.ctx, the stale factor)
+        self.update_barrier(st, sc)
         p_rhs = self._aug_rhs(st, st.c, st.mu)
         ctx, d, ok = self.inertia_correction(st, p_rhs)
         st.d, st.p = d, p_rhs
+        st.ctx = self.persist_context(ctx)
         if not ok:
             # solver.jl:646-649: k += 1 before switching to robust
             # restoration
@@ -707,10 +863,10 @@ class Kernel:
         # is success, not restoration churn
         nlp_converged = max(inf_pr, inf_du, inf_compl) <= o.tol
         if not o.hessian_constant:
-            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta)
-            st.hess_cnt += 1
+            self._refresh_hessian(st)
         p_rhs = self._aug_rhs(st, st.c, st.mu)
         ctx = self._factorize(st, 0.0, 0.0)
+        st.ctx = self.persist_context(ctx)
         # restoration solves keep the exact refinement tolerance
         st.d, _, iters = self.kkt.solve_refine(ctx, p_rhs, mu=None)
         st.p = p_rhs
@@ -975,7 +1131,7 @@ class Kernel:
             if inf_pr > o.tol:
                 st.status = int(S.INFEASIBLE_PROBLEM_DETECTED)
                 return st
-            y_new = self._least_squares_duals(st)
+            y_new, _ = self._least_squares_duals(st)
             jacl = self.kkt.jtprod(st.jac, y_new)
             y_old, jacl_old = st.y, st.jacl
             st.y, st.jacl = y_new, jacl
@@ -993,13 +1149,12 @@ class Kernel:
 
         self._update_monotone_RR(st, sc)
         if not o.hessian_constant:
-            st.hess = p.eval_lag_hess(st.scal, st.x, st.y, st.theta,
-                                      is_resto=True)
-            st.hess_cnt += 1
+            self._refresh_hessian(st, is_resto=True)
         p_rhs = self._aug_rhs_RR(st, R.mu_R)
         st.p = p_rhs
-        _, d, ok = self.inertia_correction(st, p_rhs, rr=True)
+        ctx, d, ok = self.inertia_correction(st, p_rhs, rr=True)
         st.d = d
+        st.ctx = self.persist_context(ctx)
         if not ok:
             st.status = int(S.RESTORATION_FAILED)
             return st
@@ -1036,7 +1191,8 @@ class Kernel:
         st.t_cnt += 1
         if (K.is_filter_acceptable(st.filter, theta, varphi)
                 and theta <= o.required_infeasibility_reduction * R.theta_ref):
-            st.y = self._least_squares_duals(st)
+            st.y, ls_ctx = self._least_squares_duals(st)
+            st.ctx = self.persist_context(ls_ctx)
             st.status = int(S.REGULAR)
         else:
             st.status = int(S.ROBUST)

@@ -12,9 +12,18 @@ The system is the reduced augmented form (KKTsystem.jl:38-58)
 stored as one (nw+m, nw+m) symmetric dense matrix and built fresh every
 factorization, with the bound duals eliminated and recovered analytically
 (kernels.jl:182-204), positive-slack convention ``dl = x - xl``,
-``du = xu - x``.  The matrix is equilibrated by 3 Ruiz sweeps (a congruence
-D·K·D, which keeps the inertia), cast to ``opts.dtype`` and factored by
-:mod:`..ops.dense_solvers`; the refinement operator stays float64.
+``du = xu - x``.  The matrix is equilibrated by a congruence D·K·D, which
+keeps the inertia: 3 Ruiz sweeps (``kkt_scaling="ruiz"``), the analytic
+√Ξ scaling of the K2.5 formulation (``"k25"``) or none; cast to
+``opts.dtype`` and factored by :mod:`..ops.dense_solvers`; the refinement
+operator stays float64, and so does the refinement: Richardson, or GMRES
+(``iterator="gmres"``, :func:`..ops.refine.solve_gmres`).
+
+Under compact L-BFGS on a sparse KKT system the factored matrix carries
+only the Hessian's diagonal; :meth:`DenseKKT._attach_smw` adds the
+Sherman–Morrison–Woodbury payload of the low-rank part at factorization
+time and every backsolve applies it (reference:
+src/IPM/factorization.jl:76-140).
 
 The diagonals, the reduction and recovery of the bound-dual rows and the
 refined solve with μ-aware stopping are shared with the subclasses, and
@@ -32,7 +41,7 @@ import numpy as np
 import torch
 
 from ..ops import dense_solvers as ds
-from ..ops.refine import solve_refine, solve_refine_batched
+from ..ops.refine import solve_gmres, solve_refine, solve_refine_batched
 from ..utils.options import LinearSolver, MadNLPOptions
 from .vec import KKTVec
 
@@ -44,11 +53,17 @@ def _later(what: str):
 
 
 class EquilibratedFactor(NamedTuple):
-    """Factor of D·K·D plus the Ruiz scaling vector d (original ordering).
-    The L-BFGS (SMW) payload of the JAX package comes in a later slice."""
+    """Factor of D·K·D plus the scaling vector d (original ordering).
+    ``smw`` is the optional Sherman–Morrison–Woodbury payload ``(E, T,
+    S_lu)`` of a compact L-BFGS Hessian: the factored matrix is K₀ (the
+    σ-diagonal only) and every solve is corrected as
+    ``x = x₀ − T·S⁻¹·Eᵀx₀`` with ``T = K₀⁻¹Ẽ``, ``S = C + ẼᵀK₀⁻¹Ẽ``,
+    ``C = diag(−I, I)``, ``Ẽ = [U V]`` zero-padded to the system size,
+    ``S_lu`` the LU factor and pivots of S."""
 
     inner: object
     d: torch.Tensor
+    smw: tuple = None
     opband: object = None   # unscaled f64 operator band (banded path): the
     # iterative-refinement operator as block-banded mat-vecs
 
@@ -89,20 +104,23 @@ class DenseKKT:
                                            LinearSolver.HYKKT):
             # no dual block to eliminate: plain Cholesky is the same method
             self.solver = LinearSolver.CHOLESKY
-        if opts.kkt_scaling not in ("ruiz", "none"):
-            raise _later(f"kkt_scaling={opts.kkt_scaling!r}")
         # the TPU's "inverse" default stays behind: backsolves are
         # triangular solves on every device unless the caller asks
         self.solve_mode = opts.solve_mode or "trisolve"
 
     # -- dense storage: equilibrate and factorize ---------------------------
 
-    def _factorize_matrix(self, K):
-        """Factorize D·K·D with D from 3 Ruiz sweeps (``kkt_scaling="ruiz"``,
-        d ← d/√(row-inf-norm); zero rows keep d = 1), the scaled matrix in
-        ``opts.dtype``."""
+    def _factorize_matrix(self, K, d_analytic=None):
+        """Factorize D·K·D, the scaled matrix in ``opts.dtype``, with D by
+        ``opts.kkt_scaling``: ``"k25"`` takes ``d_analytic``, the K2.5
+        scaling the KKT system supplies (a system that supplies none is
+        not scaled); ``"ruiz"`` 3 Ruiz sweeps (d ← d/√(row-inf-norm); zero
+        rows keep d = 1); anything else none."""
+        mode = self.opts.kkt_scaling
         d = K.new_ones(K.shape[0])
-        if self.opts.kkt_scaling == "ruiz":
+        if mode == "k25" and d_analytic is not None:
+            d = d_analytic
+        elif mode == "ruiz":
             for _ in range(3):
                 r = (K * (d[:, None] * d[None, :])).abs().amax(1)
                 d = torch.where(r > 0.0, d / torch.sqrt(torch.clamp_min(r, 1e-32)),
@@ -113,13 +131,82 @@ class DenseKKT:
                              solve_mode=self.solve_mode)
         return EquilibratedFactor(inner=inner, d=d)
 
+    def _k25_scaling(self, dl, du_, size_dual: int):
+        """√Ξ over the primal block, 1 over the dual block
+        (kernels.jl:61-63 scaling_factor)."""
+        s = (torch.where(self.lb, torch.sqrt(dl), 1.0)
+             * torch.where(self.ub, torch.sqrt(du_), 1.0))
+        return torch.cat([s, s.new_ones(size_dual)])
+
     def _backsolve(self, factor, rhs, active=None):
         # K x = b  ⟺  (DKD)(D⁻¹x) = D b
         if active is not None:
             raise _later("batched dense KKT storage")
         d = factor.d if rhs.ndim == 1 else factor.d[:, None]
         scaled = (d * rhs).to(self.fact_dtype)
-        return d * ds.solve(factor.inner, scaled).to(rhs.dtype)
+        return self._apply_smw(factor,
+                               d * ds.solve(factor.inner, scaled).to(rhs.dtype))
+
+    # -- compact L-BFGS low-rank correction (SMW) ---------------------------
+
+    def _apply_smw(self, factor, x0):
+        if factor.smw is None:
+            return x0
+        E, T, S_lu = factor.smw
+        n = E.shape[0]
+        squeeze = x0.ndim == 1
+        xm = x0[:, None] if squeeze else x0
+        z = torch.linalg.lu_solve(*S_lu, E.T @ xm[:n])
+        xm = xm - T @ z
+        return xm[:, 0] if squeeze else xm
+
+    def _attach_smw(self, factor, lr):
+        """The SMW payload of the low-rank part ``ΔW = V Vᵀ − U Uᵀ =
+        E C Eᵀ`` at factorization time: one backsolve of 2p right-hand
+        sides (on the banded path, one launch of the cluster solve with
+        k = 2p) and the LU factorization of the small matrix S."""
+        n, p_mem = lr.U.shape
+        E = torch.cat([lr.U, lr.V], 1)                   # (n, 2p)
+        Epad = E.new_zeros((self.sys_size(), 2 * p_mem))
+        Epad[:n] = E
+        T = self._backsolve(factor, Epad)                # K₀⁻¹ Ẽ
+        C = torch.diag(torch.cat([-E.new_ones(p_mem), E.new_ones(p_mem)]))
+        S = C + E.T @ T[:n]
+        return factor._replace(smw=(E, T, tuple(torch.linalg.lu_factor(S))))
+
+    def _zero_smw(self, n: int, p_mem: int):
+        """The zero SMW payload (no correction): the template of the
+        persisted context."""
+        z = torch.zeros((n, 2 * p_mem), dtype=torch.float64,
+                        device=self.device)
+        return (z, z.new_zeros((self.sys_size(), 2 * p_mem)),
+                (torch.eye(2 * p_mem, dtype=torch.float64, device=self.device),
+                 torch.arange(1, 2 * p_mem + 1, dtype=torch.int32,
+                              device=self.device)))
+
+    def zero_context(self) -> KKTContext:
+        """An all-zero context with the factor's shapes: the persisted
+        context of a solve that has factored nothing yet (no least-squares
+        start), as the JAX package's template."""
+        N = self.sys_size()
+        factor = EquilibratedFactor(
+            inner=ds.zero_factor(self.solver, N, self.fact_dtype,
+                                 block=self.opts.ldl_block_size or 64,
+                                 solve_mode=self.solve_mode, device=self.device),
+            d=torch.ones(N, dtype=torch.float64, device=self.device))
+        return self._zero_ctx(factor)
+
+    def _zero_ctx(self, factor) -> KKTContext:
+        p = self.prob
+        hess = p.hess_template()
+        if not torch.is_tensor(hess):
+            factor = factor._replace(smw=self._zero_smw(
+                p.n, self.opts.quasi_newton_options.max_history))
+        ones, zeros = p.zeros(p.nw) + 1.0, p.zeros(p.nw)
+        return KKTContext(
+            hess=hess, jac=p.jac_template(), pr_diag=ones,
+            du_diag=p.zeros(p.m), reg=ones, dl=ones, du_=ones, zl=zeros,
+            zu=zeros, factor=factor)
 
     def sys_size(self) -> int:
         """Dimension of the assembled matrix."""
@@ -183,12 +270,20 @@ class DenseKKT:
         ``max(tol, min(mu_tol_cap, mu_tol_factor·μ))``.  With ``active``
         the solve is batched: ``mu`` is a ``(B,)`` array and the result
         ``(x, converged (B,), iters (B,))``."""
-        if self.opts.iterator != "richardson":
-            raise NotImplementedError(
-                f"iterator={self.opts.iterator!r} comes in a later slice "
-                "of the port")
         tol = self.opts.richardson_tol
         ro = self.opts.richardson
+        if self.opts.iterator != "richardson":
+            # GMRES keeps the static tolerance, as in the JAX package
+            if active is not None:
+                raise _later("iterator='gmres' in solve_batch")
+            return solve_gmres(
+                lambda w: self.solve(ctx, w),
+                lambda x: self.mul(ctx, x),
+                b,
+                max_iter=ro.max_iter,
+                tol=tol,
+                acceptable_tol=self.opts.richardson_acceptable_tol,
+            )
         if active is not None:
             if mu is not None and ro.mu_scaled:
                 tol = np.maximum(tol, np.minimum(
@@ -231,7 +326,10 @@ class DenseKKT:
             K = W
         return KKTContext(
             hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag, reg=reg,
-            dl=dl, du_=du_, zl=zl, zu=zu, factor=self._factorize_matrix(K),
+            dl=dl, du_=du_, zl=zl, zu=zu,
+            factor=self._factorize_matrix(
+                K, self._k25_scaling(dl, du_, m)
+                if self.opts.kkt_scaling == "k25" else None),
         )
 
     # -- operator application (for iterative refinement) -------------------

@@ -10,6 +10,13 @@ its plain version on the CPU).  Backsolves run K2 on the scaled, permuted
 right-hand side; the f64 refinement operator is the unscaled symmetrized
 band (block-banded mat-vecs, no scatters).
 
+Under compact L-BFGS (``hessian_approximation=COMPACT_LBFGS``) the
+Hessian is a :class:`..ipm.quasi_newton.LowRankHessian`: its diagonal is
+the assembled Hessian pattern (``_hess_pattern``), and every solve applies
+the low-rank part by SMW (:meth:`.dense.DenseKKT._attach_smw`, whose
+2p-column backsolve is one launch of K2 with k = 2p).  ``kkt_scaling="k25"``
+takes the analytic √Ξ scaling in place of Ruiz on either storage.
+
 Dense storage (``LDL``, ``CHOLESKY``, ``LU``, ``QR``, ``EVD``): the same
 COO values are assembled into one dense (nw+m, nw+m) matrix and factored
 by :class:`.dense.DenseKKT`'s path (JAX ``kkt/sparse.py:594-610``); this is
@@ -32,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ipm.quasi_newton import LowRankHessian
 from ..ops import banded_kernels
 from ..ops.banded import (
     BandStructure,
@@ -60,8 +68,10 @@ class SparseKKT(DenseKKT):
         if opts.linear_solver in (LinearSolver.BLOCK_ARROW,
                                   LinearSolver.MULTIFRONTAL):
             raise _later(f"linear_solver={opts.linear_solver}")
-        if opts.hessian_approximation != HessianApproximation.EXACT:
-            raise _later(f"hessian_approximation={opts.hessian_approximation}")
+        # compact L-BFGS: the Hessian block is σI (+ SMW low-rank at solve
+        # time), so the assembled pattern is just the diagonal
+        self.lowrank = (opts.hessian_approximation
+                        == HessianApproximation.COMPACT_LBFGS)
         self.banded = opts.linear_solver == LinearSolver.BANDED
         if opts.banded_partitions:
             raise _later("banded_partitions (SPIKE)")
@@ -76,7 +86,7 @@ class SparseKKT(DenseKKT):
             return torch.as_tensor(a, device=dev)
 
         jr, jc = p.jac_rows_aug, p.jac_cols_aug
-        hr, hc = np.asarray(p.hess_rows), np.asarray(p.hess_cols)
+        hr, hc = self._hess_pattern()
         self.jr, self.jc = t(jr), t(jc)
         self.hr, self.hc = t(hr), t(hc)
         self.h_offdiag = t(hr != hc)
@@ -90,6 +100,15 @@ class SparseKKT(DenseKKT):
         else:
             self._init_dense_assembly()
 
+    def _hess_pattern(self):
+        """The assembled Hessian's (rows, cols): the model's lower COO, or
+        the diagonal under compact L-BFGS."""
+        p = self.prob
+        if self.lowrank:
+            diag = np.arange(p.n, dtype=np.int64)
+            return diag, diag
+        return np.asarray(p.hess_rows), np.asarray(p.hess_cols)
+
     # -- dense storage -------------------------------------------------------
 
     def _init_dense_assembly(self):
@@ -101,7 +120,7 @@ class SparseKKT(DenseKKT):
         diag = np.arange(N, dtype=np.int64)
         jr = p.nw + np.asarray(p.jac_rows_aug)
         jc = np.asarray(p.jac_cols_aug)
-        hr, hc = np.asarray(p.hess_rows), np.asarray(p.hess_cols)
+        hr, hc = self._hess_pattern()
         off = np.flatnonzero(hr != hc)
         rows = np.concatenate([diag, jr, jc, hr, hc[off]])
         cols = np.concatenate([diag, jc, jr, hc, hr[off]])
@@ -126,16 +145,16 @@ class SparseKKT(DenseKKT):
         p = self.prob
         N = p.nw + p.m
         diag = np.arange(N, dtype=np.int64)
-        rows = np.concatenate([diag, p.nw + np.asarray(p.jac_rows_aug),
-                               np.asarray(p.hess_rows)])
-        cols = np.concatenate([diag, np.asarray(p.jac_cols_aug),
-                               np.asarray(p.hess_cols)])
+        hr, hc = self._hess_pattern()
+        rows = np.concatenate([diag, p.nw + np.asarray(p.jac_rows_aug), hr])
+        cols = np.concatenate([diag, np.asarray(p.jac_cols_aug), hc])
         return rows, cols, N
 
     def _band_ordering(self):
         p = self.prob
+        hr, hc = self._hess_pattern()
         return kkt_interleaved_ordering(
-            p.hess_rows, p.hess_cols, p.jac_rows_aug, p.jac_cols_aug, p.nw, p.m,
+            hr, hc, p.jac_rows_aug, p.jac_cols_aug, p.nw, p.m,
         )
 
     def _init_band_structure(self):
@@ -148,16 +167,24 @@ class SparseKKT(DenseKKT):
         self._bperm = torch.as_tensor(self.bstruct.perm, device=self.device)
         self._biperm = torch.as_tensor(self.bstruct.iperm, device=self.device)
 
-    def _banded_factorize_coo(self, vals, active=None, prev=None):
+    def _banded_factorize_coo(self, vals, active=None, prev=None,
+                              d_analytic=None):
         """One assembly of the raw f64 band; Ruiz, the congruence scaling
-        and the refinement operator reuse it.  For a batch (``vals (B,
-        nnz)``), the lanes that ``active`` leaves out keep ``prev``'s
+        and the refinement operator reuse it (``d_analytic``: the K2.5
+        scaling, taken under ``kkt_scaling="k25"``).  For a batch (``vals
+        (B, nnz)``), the lanes that ``active`` leaves out keep ``prev``'s
         factor (K3 does not touch them)."""
         bs = self.bstruct
         lead = vals.shape[:-1]
         raw = self._assemble(vals)
         raw_sym = banded_symmetrize(bs, raw)
-        if self.opts.kkt_scaling == "ruiz":
+        mode = self.opts.kkt_scaling
+        if mode == "k25" and d_analytic is not None:
+            d = d_analytic
+            d_perm = torch.cat([d[..., self._bperm],
+                                d.new_ones(lead + (bs.nbp * bs.b - bs.N,))],
+                               -1).reshape(lead + (bs.nbp, bs.b))
+        elif mode == "ruiz":
             d_perm = ruiz_band(bs, raw_sym)
             d = d_perm.reshape(lead + (-1,))[..., self._biperm]
         else:
@@ -186,11 +213,13 @@ class SparseKKT(DenseKKT):
         if not self.banded:
             return super()._backsolve(factor, rhs, active)
         # K x = b  ⟺  (DKD)(D⁻¹x) = D b
-        scaled = (factor.d * rhs).to(self.fact_dtype)
+        d = factor.d if rhs.ndim == 1 or active is not None \
+            else factor.d[:, None]
+        scaled = (d * rhs).to(self.fact_dtype)
         if active is None:
             xp = banded_kernels.solve(self.bstruct, factor.inner,
                                       scaled[self._bperm])
-            return factor.d * xp[self._biperm].to(rhs.dtype)
+            return self._apply_smw(factor, d * xp[self._biperm].to(rhs.dtype))
         xp = banded_kernels.solve_batched(self.bstruct, factor.inner,
                                           scaled[..., self._bperm], active)
         return factor.d * xp[..., self._biperm].to(rhs.dtype)
@@ -199,6 +228,15 @@ class SparseKKT(DenseKKT):
         if not self.banded:
             return super().inertia(ctx)
         return banded_inertia(self.bstruct, ctx.factor.inner)
+
+    def zero_context(self):
+        if not self.banded:
+            return super().zero_context()
+        bs = self.bstruct
+        factor = EquilibratedFactor(
+            inner=bs.zero_factor(self.fact_dtype, self.device),
+            d=torch.ones(bs.N, dtype=torch.float64, device=self.device))
+        return self._zero_ctx(factor)
 
     # -- sparse products ---------------------------------------------------
 
@@ -217,7 +255,11 @@ class SparseKKT(DenseKKT):
         return segment_sum(jac_vals * v[..., self.jc], self._jp_table)
 
     def hess_mul(self, hess_vals, v):
-        """(…, n) symmetric product from the lower-triangular values."""
+        """(…, n) symmetric product from the lower-triangular values, or of
+        the compact L-BFGS operator B = diag − UUᵀ + VVᵀ."""
+        if isinstance(hess_vals, LowRankHessian):
+            lr = hess_vals
+            return lr.diag * v - lr.U @ (lr.U.T @ v) + lr.V @ (lr.V.T @ v)
         out = segment_sum(hess_vals * v[..., self.hc], self._hr_table)
         off = torch.where(self.h_offdiag, hess_vals, 0.0)
         return out + segment_sum(off * v[..., self.hr], self._hc_table)
@@ -232,18 +274,27 @@ class SparseKKT(DenseKKT):
         the robust-restoration system, whose terms arrive in ``reg`` and
         ``du_diag``; only HYKKT, which the port does not have yet, reads
         it."""
+        p = self.prob
         pr_diag, du_diag = self.aug_diagonals(reg, du_diag, dl, du_, zl, zu)
+        lowrank = isinstance(hess, LowRankHessian)
+        hv = hess.diag if lowrank else hess
+        d_k25 = (self._k25_scaling(dl, du_, p.m)
+                 if self.opts.kkt_scaling == "k25" and active is None else None)
         if not self.banded:
             if active is not None:
                 raise _later("batched dense KKT storage")
-            K = self._assemble_dense(pr_diag, du_diag, jac, hess)
+            K = self._assemble_dense(pr_diag, du_diag, jac, hv)
+            factor = self._factorize_matrix(K, d_k25)
+        else:
+            vals = torch.cat([pr_diag, du_diag, jac, hv], -1)
+            factor = self._banded_factorize_coo(
+                vals, active, None if prev is None else prev.factor, d_k25)
+        if lowrank:
+            factor = self._attach_smw(factor, hess)
+        if not self.banded:
             return KKTContext(
                 hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag,
-                reg=reg, dl=dl, du_=du_, zl=zl, zu=zu,
-                factor=self._factorize_matrix(K))
-        vals = torch.cat([pr_diag, du_diag, jac, hess], -1)
-        factor = self._banded_factorize_coo(
-            vals, active, None if prev is None else prev.factor)
+                reg=reg, dl=dl, du_=du_, zl=zl, zu=zu, factor=factor)
         if prev is not None:
             on = torch.as_tensor(active, device=self.device)[:, None]
             pr_diag = torch.where(on, pr_diag, prev.pr_diag)
@@ -273,6 +324,11 @@ class SparseKKT(DenseKKT):
             + torch.where(ub, ctx.zu / ctx.du_, 0.0)
         )
         wx = kv[..., : p.nw] - sigma * v.xp
+        if isinstance(ctx.hess, LowRankHessian):
+            lr = ctx.hess
+            vx = v.xp[: p.n]
+            corr = -lr.U @ (lr.U.T @ vx) + lr.V @ (lr.V.T @ vx)
+            wx = torch.cat([wx[: p.n] + corr, wx[p.n:]])
         wx = wx - torch.where(lb, v.zl, 0.0) + torch.where(ub, v.zu, 0.0)
         wy = kv[..., p.nw:] if p.m > 0 else v.y
         wzl = torch.where(lb, ctx.zl * v.xp + ctx.dl * v.zl, 0.0)

@@ -171,6 +171,15 @@ class BandStructure:
     def shape(self):
         return (self.nbp, self.bw + 1, self.b, self.b)
 
+    def zero_factor(self, dtype, device) -> "BandedFactor":
+        """The zero factor of this geometry (pivots 1): the persisted
+        context of a solve that has factored nothing yet."""
+        b, nbp = self.b, self.nbp
+        return BandedFactor(
+            band=torch.zeros(self.shape, dtype=dtype, device=device),
+            invL=torch.zeros((nbp, b, b), dtype=dtype, device=device),
+            d=torch.ones((self.nb * b,), dtype=dtype, device=device))
+
     def _map_permuted(self, pr, pc):
         lo = np.minimum(pr, pc)
         hi = np.maximum(pr, pc)

@@ -22,7 +22,7 @@ default is ``"trisolve"`` on every device.  ``BLOCK_CHOLESKY`` and
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -31,17 +31,14 @@ from . import dense_kernels as _dense_kernels
 from . import ldlt as _ldlt
 
 
-class DenseFactor:
+class DenseFactor(NamedTuple):
     """Backend-specific factor payload: ``kind`` names the backend (and the
     solve mode), ``a``/``b`` hold its tensors, ``n`` the system size."""
 
-    __slots__ = ("kind", "a", "b", "n")
-
-    def __init__(self, kind: str, a, b, n: int):
-        self.kind = kind
-        self.a = a
-        self.b = b
-        self.n = n
+    kind: str
+    a: torch.Tensor
+    b: torch.Tensor
+    n: int
 
 
 def _later(what: str):
@@ -84,6 +81,34 @@ def factorize(K: torch.Tensor, solver: LinearSolver, block: int = 64,
         q, r = torch.linalg.qr(K)
         return DenseFactor("qr", q, r, n)
     raise ValueError(f"unsupported dense solver {solver}")
+
+
+def zero_factor(solver: LinearSolver, n: int, dtype, block: int = 64,
+                solve_mode: str = "trisolve", device=None) -> DenseFactor:
+    """The all-zero factor of :func:`factorize`'s kind and shapes (the JAX
+    package's ``zero_factor``): the persisted context of a solve that has
+    factored nothing yet.  Its solves are not finite, as there."""
+    inv = solve_mode == "inverse"
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if solver == LinearSolver.LDL:
+        np_ = max(1, -(-n // block)) * block
+        return DenseFactor("ldl_inv" if inv else "ldl", z(np_, np_), z(np_), n)
+    if solver == LinearSolver.CHOLESKY:
+        if inv:
+            return DenseFactor("chol_inv", z(n, n), z(dt=torch.int32), n)
+        return DenseFactor("cholesky", z(n, n), z(dt=torch.int32), n)
+    if solver == LinearSolver.LU:
+        return DenseFactor("lu", z(n, n),
+                           torch.arange(1, n + 1, dtype=torch.int32,
+                                        device=device), n)
+    if solver == LinearSolver.EVD:
+        return DenseFactor("evd", z(n, n), z(n), n)
+    if solver == LinearSolver.QR:
+        return DenseFactor("qr", z(n, n), z(n, n), n)
+    raise _later(f"linear_solver={solver}")
 
 
 def solve(factor: DenseFactor, rhs: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,11 @@ norms per sweep.  :func:`solve_refine_batched` runs the same loop for a
 batch of lanes (the vmapped ``lax.while_loop`` of the JAX package): each
 lane stops on its own ratio, and a sweep solves only the lanes still
 running.
+
+:func:`solve_gmres` is the refinement of ``iterator="gmres"``: the JAX
+package's preconditioned GMRES (``jax.scipy.sparse.linalg.gmres`` with
+``solve_method="batched"``), the KKT operator as the mat-vec and the
+current factorization as the preconditioner.
 """
 
 from __future__ import annotations
@@ -97,3 +102,88 @@ def solve_refine_batched(solve_fn, mul_fn, b: KKTVec, active, max_iter: int,
     converged = (ratio < acceptable_tol) & (norm_w <= 0.999 * norm_b)
     converged |= norm_b == 0.0
     return x, converged & np.asarray(active, dtype=bool), ir
+
+
+_EPS = float(torch.finfo(torch.float64).eps)
+
+
+def _safe_normalize(x, thresh=None):
+    """(x / ‖x‖₂, ‖x‖₂), or (0, 0) where ‖x‖₂ is not above ``thresh``
+    (default: the dtype's epsilon), as ``jax.scipy.sparse.linalg`` takes
+    it; the norm is a host float."""
+    norm = torch.linalg.vector_norm(x)
+    if float(norm) > (_EPS if thresh is None else thresh):
+        return x / norm, float(norm)
+    return torch.zeros_like(x), 0.0
+
+
+def _gmres_restart(A, M, b, x0, unit_residual, residual_norm, restart):
+    """One restart of GMRES, as ``_gmres_batched`` (the JAX package's
+    "batched" method): ``restart`` Arnoldi steps on ``M∘A`` (fewer on a
+    breakdown), each one pass of classical Gram–Schmidt against all
+    ``restart + 1`` columns of V, then the least-squares problem of the
+    Hessenberg matrix by its normal equations (Cholesky)."""
+    V = unit_residual.new_zeros((unit_residual.shape[0], restart + 1))
+    V[:, 0] = unit_residual
+    H = torch.eye(restart, restart + 1, dtype=V.dtype, device=V.device)
+    k, breakdown = 0, False
+    while k < restart and not breakdown:
+        v = M(A(V[:, k]))
+        _, v_norm_0 = _safe_normalize(v)
+        h = V.T @ v
+        v = v - V @ h
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=_EPS * v_norm_0)
+        V[:, k + 1] = unit_v
+        h[k + 1] = v_norm_1
+        H[k, :] = h
+        breakdown = v_norm_1 == 0.0
+        k += 1
+    beta = H.new_zeros(restart + 1)
+    beta[0] = residual_norm
+    L, info = torch.linalg.cholesky_ex(H @ H.T)
+    if int(info):
+        L = torch.full_like(L, math.nan)   # as XLA's failed Cholesky
+    y = torch.cholesky_solve((H @ beta)[:, None], L)[:, 0]
+    x = x0 + V[:, :-1] @ y
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    return x, unit_residual, residual_norm
+
+
+def solve_gmres(solve_fn, mul_fn, b: KKTVec, max_iter: int, tol: float,
+                acceptable_tol: float):
+    """Preconditioned GMRES refinement (the reference's ``KrylovIterator``,
+    lib/MadNLPKrylov/src/MadNLPKrylov.jl:14-100): ``x`` from zero, at most
+    ``max_iter`` restarts of ``min(20, max_iter)`` Arnoldi steps on the
+    left-preconditioned system ``K⁻¹K x = K⁻¹b`` while the preconditioned
+    residual's 2-norm exceeds ``tol·‖b‖₂``; then the refinement's own
+    success test on the true residual.  Returns ``(x, converged,
+    max_iter)``: the JAX package counts ``max_iter`` backsolves, whatever
+    GMRES did."""
+    sizes = [a.shape[0] for a in b]
+
+    def unflat(v):
+        return KKTVec(*torch.split(v, sizes))
+
+    def A(v):
+        return torch.cat(list(mul_fn(unflat(v))))
+
+    def M(v):
+        return torch.cat(list(solve_fn(unflat(v))))
+
+    bf = torch.cat(list(b))
+    restart = min(min(20, max(1, max_iter)), bf.shape[0])
+    atol = max(tol * float(torch.linalg.vector_norm(bf)), 0.0)
+    x = torch.zeros_like(bf)
+    unit_residual, residual_norm = _safe_normalize(M(bf - A(x)))
+    k = 0
+    while k < max_iter and residual_norm > atol:
+        x, unit_residual, residual_norm = _gmres_restart(
+            A, M, bf, x, unit_residual, residual_norm, restart)
+        k += 1
+    xk = unflat(x)
+    r = KKTVec(*(bb - kk for bb, kk in zip(b, mul_fn(xk))))
+    norm_r, norm_x, norm_b = torch.stack(
+        [norm_inf(r), norm_inf(xk), norm_inf(b)]).tolist()
+    converged = (_ratio(norm_r, norm_x, norm_b) < acceptable_tol
+                 and norm_r <= 0.999 * norm_b) or norm_b == 0.0
+    return xk, converged, max_iter

@@ -4,16 +4,24 @@ The port's :class:`~madnlp_tpu_torch.ipm.state.State` is a dataclass of
 tensors, host scalars and small named tuples, so a checkpoint is one
 ``.npz`` entry per leaf, keyed by its field path: ``"x"``, ``"mu"``,
 ``"d.xp"``, ``"filter.th"``, ``"scal.con_scale"``, ``"RR.pp"``,
-``"RR.filter.count"``, ``"theta"`` … (a ``None`` leaf — the parameters of
-a model that takes none — is not stored).  Tensors are stored as their
-numpy arrays, floats as float64, ints as int64 and flags as bool.
+``"RR.filter.count"``, ``"qn.Sk"``, ``"hess.U"`` (a low-rank Hessian),
+``"ctx.factor.inner.band"`` (the persisted KKT context), ``"theta"`` … (a
+``None`` leaf — the parameters of a model that takes none, the context
+under the monotone barrier — is not stored; the items of a plain tuple
+are keyed by position).  Tensors are stored as their numpy arrays, floats
+as float64, ints as int64, flags as bool and strings as unicode.
 
 :func:`load_state` is strict: a field missing from the file, a field the
 template does not have, or a leaf of another shape or dtype raises
-``ValueError`` naming the field.  (The JAX package's loader keeps the
-template's value for a leaf whose shape differs; the port has no
-persisted KKT context, the one leaf that reason covers there.)  Loaded
-tensors take the template's device and dtype.
+``ValueError`` naming the field.  The one exception is the JAX package's:
+the persisted KKT context ``ctx`` (and every field under it) takes the
+template's value where the file lacks it, has it in another shape or
+dtype, or the template has none, and the file's extra ``ctx`` fields are
+ignored.  The context is a factorization that an adaptive barrier's next
+probing solves read and the monotone rule never keeps, so a checkpoint
+written under one barrier rule loads under the other.  Everything else,
+the quasi-Newton memory and the low-rank Hessian included, loads strictly.
+Loaded tensors take the template's device and dtype.
 """
 
 from __future__ import annotations
@@ -24,15 +32,25 @@ import numpy as np
 import torch
 
 
+_CTX = "ctx"
+
+
 def _is_record(v) -> bool:
-    return dataclasses.is_dataclass(v) or (isinstance(v, tuple)
-                                           and hasattr(v, "_fields"))
+    return dataclasses.is_dataclass(v) or isinstance(v, tuple)
 
 
 def _children(v):
     if dataclasses.is_dataclass(v):
         return [(f.name, getattr(v, f.name)) for f in dataclasses.fields(v)]
-    return list(zip(v._fields, v))
+    if hasattr(v, "_fields"):
+        return list(zip(v._fields, v))
+    return [(str(i), child) for i, child in enumerate(v)]
+
+
+def _rebuild(tmpl, parts: dict):
+    if dataclasses.is_dataclass(tmpl) or hasattr(tmpl, "_fields"):
+        return type(tmpl)(**parts)
+    return tuple(parts[str(i)] for i in range(len(tmpl)))
 
 
 def _as_array(v) -> np.ndarray:
@@ -49,6 +67,8 @@ def _as_array(v) -> np.ndarray:
         return np.asarray(v, dtype=np.float64)
     if isinstance(v, list):      # the iteration-log row
         return np.asarray(v, dtype=np.float64)
+    if isinstance(v, str):       # a dense factor's kind
+        return np.asarray(v)
     raise TypeError(f"cannot checkpoint a leaf of type {type(v).__name__}")
 
 
@@ -88,29 +108,43 @@ def _restore_leaf(tmpl, arr: np.ndarray, key: str):
     return type(tmpl)(arr.item())
 
 
+def _same_layout(tmpl, arr: np.ndarray) -> bool:
+    want = _as_array(tmpl)
+    return arr.shape == want.shape and arr.dtype == want.dtype
+
+
 def load_state(path: str, template):
     """Restore a state saved by :func:`save_state` into the structure of
     ``template`` (a state of the same solver configuration, e.g.
     ``solver.kernel.zero_state(...)`` or a previous state).  Strict: any
     field missing, extra, or of another shape or dtype raises
-    ``ValueError``."""
+    ``ValueError``, except under the persisted KKT context ``ctx``, which
+    keeps the template's value for such a field."""
     with np.load(path if path.endswith(".npz") else path + ".npz") as f:
         data = {k: f[k] for k in f.files}
-    used = set()
+    used = {k for k in data if k == _CTX or k.startswith(_CTX + ".")}
 
-    def build(tmpl, key):
+    def build(tmpl, key, lenient):
         if tmpl is None:
             return None
         if _is_record(tmpl):
-            parts = {name: build(child, f"{key}.{name}" if key else name)
-                     for name, child in _children(tmpl)}
-            return type(tmpl)(**parts)
+            parts = {}
+            for name, child in _children(tmpl):
+                sub = f"{key}.{name}" if key else name
+                parts[name] = build(child, sub, lenient or sub == _CTX)
+            return _rebuild(tmpl, parts)
+        if lenient:
+            # the persisted KKT context: the template's value unless the
+            # file holds the same leaf
+            if key in data and _same_layout(tmpl, data[key]):
+                return _restore_leaf(tmpl, data[key], key)
+            return tmpl
         if key not in data:
             raise ValueError(f"checkpoint lacks field {key!r}")
         used.add(key)
         return _restore_leaf(tmpl, data[key], key)
 
-    state = build(template, "")
+    state = build(template, "", False)
     extra = sorted(set(data) - used)
     if extra:
         raise ValueError(f"checkpoint has fields the template lacks: {extra}")

@@ -590,6 +590,30 @@ def test_solves_launch_the_cluster_kernel_once_per_call():
     assert counts["banded_solve_reference_cuda"] == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,bw,nb", [(256, 2, 11), (256, 4, 10)])
+def test_cluster_solve_of_twelve_columns_is_twelve_one_column_solves(
+        b, bw, nb, dtype):
+    """K2 at k = 12, the compact L-BFGS SMW solve's width (2·max_history),
+    at the flagship's and the ring's geometry: each column bit for bit the
+    one-column launch, and within RTOL of the plain solve."""
+    _need_cuda()
+    st, band = _system(b + bw + nb, nb, b, bw, dtype)
+    f = bk.factorize(st, band.clone())
+    rng = np.random.default_rng(12)
+    rhs = torch.as_tensor(rng.standard_normal((st.N, 12)), dtype=dtype,
+                          device="cuda")
+    wide = plain.pad_rhs(st, rhs)
+    x = wide.clone()
+    bk.banded_solve_cuda(f.band, f.invL, f.d, x)
+    for j in range(12):
+        xj = wide[:, j:j + 1].clone()
+        bk.banded_solve_cuda(f.band, f.invL, f.d, xj)
+        torch.cuda.synchronize()
+        assert _same_bits(x[:, j:j + 1], xj), j
+    assert _rel(x[: st.N], plain.banded_solve(st, f, rhs)) < RTOL[dtype]
+
+
 def test_solve_wrappers_raise_where_no_plan_fits():
     _need_cuda()
     st, f, rhs = _factored_lanes(11, 256, 2, torch.float64, 1)
@@ -757,8 +781,8 @@ def test_batch_restoration_on_the_card():
     on the card: status, iterations and factorizations exactly, objective
     within 1e-8 relative, backsolves exactly on the 1.0 lane and on the
     2.0 lane inside its one-ulp spread, 195-198, which single and batched
-    solves share (``tools/restoration_spread.py port|batch --nb 118``, seeds
-    0-6 on the card; every other count of those 14 solves is one
+    solves share (``tools/spread.py restoration --pkg port|batch --nb 118``,
+    seeds 0-6 on the card; every other count of those 14 solves is one
     number).  K3/K4 launched; K1/K2, K5-K7 and every witness never."""
     _need_cuda()
     single = [_restoration_solver().solve(params=p) for p in (1.0, 2.0)]

@@ -1,7 +1,10 @@
 """Elementwise parity of the port's IPM reductions (madnlp_tpu_torch/ipm/
 kernels.py) with the JAX package's (madnlp_tpu/ipm/kernels.py) on one
 numpy-seeded masked state: the same float64 formulas, agreement to 1e-13
-relative (summation order differs).
+relative (summation order differs).  Also ``curvature``
+(ipm/quasi_newton.py), the σ-initialization strategies of the
+quasi-Newton updates (quasi_newton.jl:48-61), on a seeded secant pair:
+within 1e-12 relative.
 """
 
 import numpy as np
@@ -12,7 +15,13 @@ import jax.numpy as jnp
 
 import madnlp_tpu  # noqa: F401  (float64 in JAX)
 from madnlp_tpu.ipm import kernels as JK
+from madnlp_tpu.ipm import quasi_newton as jqn
+from madnlp_tpu.utils.options import BFGSInitStrategy as JInit
 from madnlp_tpu_torch.ipm import kernels as TK
+from madnlp_tpu_torch.ipm import quasi_newton as tqn
+from madnlp_tpu_torch.utils.options import BFGSInitStrategy as TInit
+
+from test_torch_step_options import close, secant_pairs
 
 torch.set_num_threads(1)
 
@@ -118,3 +127,10 @@ def test_ipm_kernel_matches_jax(name):
             diff = np.where(same, 0.0, np.abs(a - r))
         scale = np.max(np.abs(r[np.isfinite(r)]), initial=0.0)
         assert np.max(diff, initial=0.0) <= RTOL * max(scale, 1e-300)
+
+
+@pytest.mark.parametrize("strategy", [s.name for s in TInit])
+def test_curvature_matches_jax(strategy):
+    (s, y), = secant_pairs(7, 1, 0)
+    close(tqn.curvature(TInit[strategy], torch.tensor(s), torch.tensor(y)),
+          jqn.curvature(JInit[strategy], jnp.asarray(s), jnp.asarray(y)))

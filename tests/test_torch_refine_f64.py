@@ -22,9 +22,19 @@ factorizations and take 27-29 backsolves (the port's 28 and the JAX
 package's 29 among them), the spread that ``chip_smoke.py`` holds the card
 to (``FLAGSHIP_FLOAT64_BACKSOLVES``).
 
-Run the whole study (a few minutes on the CPU):
+``test_step_option_sweeps_part_below_rounding`` (slow) does the same for
+the step options whose float64 flagship backsolves part from the JAX
+package's (the quality-function and LOQO barriers, the inertia-free
+correction): it replays every refinement of the port's solve on the same
+inputs in the JAX package's KKT system and finds the calls whose sweep
+counts differ, each at the last factorizations with its rounding floor
+above its tolerance.
+
+Run the whole study (a few minutes on the CPU), or one step option's
+replay (about a minute):
 
     PYTHONPATH=. python tests/test_torch_refine_f64.py
+    PYTHONPATH=. python tests/test_torch_refine_f64.py quality_function
 """
 
 import numpy as np
@@ -54,18 +64,18 @@ SPREAD = (27, 29)       # whole-solve float64 backsolves over one-ulp starts
 EPS = np.finfo(np.float64).eps
 
 
-def _port_solver(model=None):
+def _port_solver(model=None, **opts):
     return T.MadNLPSolver(
         topf.build_sparse(nb=600, seed=0) if model is None else model,
         device="cpu", linear_solver=T.LinearSolver.BANDED, dtype="float64",
         richardson=T.RichardsonOptions(mu_scaled=True),
-        print_level=T.PrintLevel.ERROR)
+        print_level=T.PrintLevel.ERROR, **opts)
 
 
-def _jax_options():
+def _jax_options(**opts):
     return dict(linear_solver=J.LinearSolver.BANDED, dtype="float64",
                 richardson=JRichardson(mu_scaled=True),
-                print_level=J.PrintLevel.ERROR)
+                print_level=J.PrintLevel.ERROR, **opts)
 
 
 def _ulp(a, seed):
@@ -74,24 +84,27 @@ def _ulp(a, seed):
     return a * (1.0 + EPS * rng.integers(-1, 2, np.shape(a)))
 
 
-def capture():
-    """The port's float64 flagship solve on the CPU, with the KKT inputs,
-    right-hand side, μ and sweep count of every refinement of an IPM
-    iteration (the least-squares dual initialization's is left out)."""
-    solver = _port_solver()
+def capture(**opts):
+    """The port's float64 flagship solve on the CPU (under the step
+    options ``opts``), with the KKT inputs, right-hand side, μ and sweep
+    count of every refinement of an IPM iteration (the least-squares dual
+    initialization's is left out)."""
+    solver = _port_solver(**opts)
     kkt = solver.kernel.kkt
     build, refine = kkt.build_and_factorize, kkt.solve_refine
     last, calls = {}, []
 
     def building(*args, **kwargs):
         last["args"] = [a.clone().numpy() for a in args]
+        last["factorization"] = last.get("factorization", 0) + 1
         return build(*args, **kwargs)
 
     def refining(ctx, b, mu=None, active=None):
         out = refine(ctx, b, mu=mu, active=active)
         if mu is not None:
             calls.append({"args": last["args"], "mu": mu, "sweeps": out[2],
-                          "b": [a.clone().numpy() for a in b]})
+                          "b": [a.clone().numpy() for a in b],
+                          "factorization": last["factorization"]})
         return out
 
     kkt.build_and_factorize, kkt.solve_refine = building, refining
@@ -165,6 +178,87 @@ def test_iteration_24_is_below_rounding(captured):
         assert kkt.solve_refine(ctx, b, mu=at["mu"])[2] in (2, 3)
 
 
+# The step options whose float64 flagship backsolves part from the JAX
+# package's (the port's CPU solve against the pins of chip_smoke.py's
+# STEP_REFERENCE): iterations and factorizations equal, backsolves
+# (port, JAX).
+STEP_OPTION_BACKSOLVES = {
+    "quality_function": ({"barrier": T.BarrierUpdate.QUALITY_FUNCTION},
+                         {"barrier": J.BarrierUpdate.QUALITY_FUNCTION},
+                         (35, 39), (41, 43)),
+    "loqo": ({"barrier": T.BarrierUpdate.LOQO},
+             {"barrier": J.BarrierUpdate.LOQO}, (26, 26), (27, 28)),
+    "inertia_free": (
+        {"inertia_correction_method": T.InertiaCorrection.FREE},
+        {"inertia_correction_method": J.InertiaCorrection.FREE},
+        (25, 25), (53, 54)),
+}
+
+
+def _tolerance(kkt, mu):
+    r = kkt.opts.richardson
+    return max(kkt.opts.richardson_tol, min(r.mu_tol_cap,
+                                            r.mu_tol_factor * mu))
+
+
+def sweep_parting(name):
+    """Every refinement of the port's float64 flagship solve under the
+    step option ``name`` on the CPU, replayed on the same inputs by the
+    JAX package's KKT system (its operator, in XLA's summation order):
+    the port's solve, and for each call whose sweep counts differ its
+    factorization, μ, both counts, the tolerance and the rounding floor
+    of the refinement ratio there (``rounding_floor``)."""
+    topts, jopts, _, _ = STEP_OPTION_BACKSOLVES[name]
+    stats, calls = capture(**topts)
+    jkkt = J.MadNLPSolver(jopf.build_sparse(nb=600, seed=0),
+                          **_jax_options(**jopts)).kernel.kkt
+    run = jax.jit(lambda args, b, mu: jkkt.solve_refine(
+        jkkt.build_and_factorize(*args), b, mu=mu)[2])
+    kkt = _port_solver(**topts).kernel.kkt
+    parted, jax_total = [], 0
+    for at in calls:
+        b = JVec(*(jnp.asarray(a) for a in at["b"]))
+        sweeps = int(run([jnp.asarray(a) for a in at["args"]], b,
+                         jnp.asarray(at["mu"])))
+        jax_total += sweeps
+        if sweeps == at["sweeps"]:
+            continue
+        ctx = kkt.build_and_factorize(*(torch.as_tensor(a)
+                                        for a in at["args"]))
+        tb = TVec(*(torch.as_tensor(a) for a in at["b"]))
+        x, _, again = kkt.solve_refine(ctx, tb, mu=at["mu"])
+        assert again == at["sweeps"]
+        parted.append({"factorization": at["factorization"],
+                       "mu": at["mu"], "port": at["sweeps"], "jax": sweeps,
+                       "tolerance": _tolerance(kkt, at["mu"]),
+                       "floor": rounding_floor(kkt, ctx, tb, x)})
+    return stats, calls, parted, jax_total
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(STEP_OPTION_BACKSOLVES))
+def test_step_option_sweeps_part_below_rounding(name):
+    """Under the quality-function and LOQO barriers and the inertia-free
+    correction the port's float64 flagship solve takes the JAX package's
+    iterations and factorizations, and one or two backsolves fewer.
+    Replayed on the port's own inputs by the JAX package's KKT system,
+    the sweep counts differ only at refinements of the last factorizations
+    (μ at its floor), whose rounding floor lies above their tolerance (the
+    C1 mechanism): the JAX package's operator, summed in XLA's order,
+    takes another number of sweeps than the port's on the very same
+    inputs (more under the barriers, fewer under the inertia-free
+    correction)."""
+    _, _, (it, fact), (port_back, _) = STEP_OPTION_BACKSOLVES[name]
+    stats, _, parted, _ = sweep_parting(name)
+    c = stats.counters
+    assert (stats.status.name, stats.iter, c["factorization_cnt"],
+            c["backsolve_cnt"]) == ("SOLVE_SUCCEEDED", it, fact, port_back)
+    assert parted
+    for at in parted:
+        assert at["floor"] > at["tolerance"], at
+        assert at["factorization"] >= fact - 1, at
+
+
 def _perturbed_start(model, seed):
     model.x0 = _ulp(model.x0, seed)
     return model
@@ -204,6 +298,17 @@ def test_whole_solve_spread():
 
 
 if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:]:
+        # PYTHONPATH=. python tests/test_torch_refine_f64.py quality_function
+        stats, calls, parted, jax_total = sweep_parting(sys.argv[1])
+        print("port:", stats.iter, stats.counters["factorization_cnt"],
+              stats.counters["backsolve_cnt"], "sweeps",
+              sum(at["sweeps"] for at in calls), "JAX's replay", jax_total)
+        for at in parted:
+            print(at)
+        sys.exit()
     stats, calls = capture()
     at = calls[ITERATION - 1]
     print("port:", stats.iter, stats.counters["factorization_cnt"],

@@ -5,7 +5,7 @@ how much the deciding test is met.
 Both packages solve ``opf.build_sparse(nb=NB, seed=0, parametric=True)``
 at load scale THETA (banded KKT, μ-scaled Richardson, float64) on the CPU
 from the same initial point (``--seed`` moves it by one float64 ulp, as
-``tools/restoration_spread.py`` does), one step of the three-phase loop at
+``tools/spread.py`` does), one step of the three-phase loop at
 a time and in lock step.  After every step both states are read and
 compared: the relative distance of the iterates and of the constraint
 values.  At the first step after which the two packages take different
@@ -50,7 +50,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from restoration_spread import ulp  # noqa: E402
+from spread import ulp  # noqa: E402
 
 
 def _arrays(st):
