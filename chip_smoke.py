@@ -53,7 +53,12 @@ script exits non-zero without a result):
    the compact L-BFGS SMW solve, 2 · max_history), at the flagship's
    geometry and the ring's (b = 256, bw = 2 and 4), float32 and float64,
    against the plain solve and against 12 one-column K2 launches, bit for
-   bit, with its launch plan and its time beside one column's.
+   bit, with its launch plan and its time beside one column's; and K4 on
+   12 columns (the batched SMW solve) over the batch's 16 lanes at the
+   flagship's geometry with lane 3 inactive, float32 and float64, against
+   the plain batched solve and against 12 one-column K4 launches, bit for
+   bit, the inactive lane untouched, timed beside one column's and the
+   plain solve's, with its bound.
 4. ``solve``   — the flagship sparse ACOPF (``opf.build_sparse(nb=600,
    seed=0)``, banded KKT, μ-scaled Richardson) solved on the card in
    float64 (which also warms the card up) and then float32, the main path,
@@ -198,6 +203,24 @@ script exits non-zero without a result):
     and dense compact L-BFGS and damped BFGS (f64) held exactly to the
     JAX package at the largest flagship size at which both packages'
     judged runs agree (``STEP_EXACT``: nb=30, and nb=14 for damped BFGS).
+13. ``batch_step_options`` — the step options inside ``solve_batch``: the
+    parametric flagship at the 16 ``BATCH_SCALES`` in one bulk run (K3 /
+    K4) under the quality function, LOQO and the inertia-free correction
+    in float64 and float32, and under ``kkt_scaling="k25"`` in float32.
+    Every lane against the port's single solve of its scale on the card
+    (status, iterations and factorizations exactly, the objective within
+    1e-8, backsolves within ``BACKSOLVE_LANE_RTOL``), lanes 0, 5, 10 and
+    15 in float64 against the JAX package's single solves
+    (``BATCH_STEP_JAX``); K3 and K4 launched, K1/K2 and every witness
+    never, K4's launches per batched step; the run repeated bit for bit
+    with a window of its batched steps under torch.profiler (the busy
+    share), and ``TIMED_BATCHES`` more, bit for bit, for the median
+    lane-iterations per second.
+14. ``batch_step_options_exact`` — compact L-BFGS inside ``solve_batch``
+    on the parametric nb=30 flagship at ``BATCH_SCALES``, float64 and
+    float32: every lane the port's single solve on the card, the lanes of
+    ``BATCH_EXACT_JAX`` the JAX package's, and one K4 launch of 12
+    columns (the SMW payload) per batched factorization.
 
 Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -622,6 +645,159 @@ STEP_EXACT_SPREAD = {
     ("banded", "float32", "compact_lbfgs"): {"backsolve_cnt": (50, 56)},
 }
 
+# The step options inside solve_batch (phases batch_step_options and
+# batch_step_options_exact): the parametric flagship at BATCH_SCALES, one
+# bulk run per option and dtype, every lane held to the port's single solve
+# of its scale on the card (status, iterations and factorizations exactly,
+# the objective within OBJ_RTOL, backsolves within BACKSOLVE_LANE_RTOL).
+BATCH_STEP_OPTIONS = {
+    "quality_function": STEP_BANDED["quality_function"],
+    "loqo": STEP_BANDED["loqo"],
+    "inertia_free": STEP_BANDED["inertia_free"],
+    "k25": {"kkt_scaling": "k25"},
+}
+BATCH_STEP_RUNS = [(name, dtype) for dtype in ("float64", "float32")
+                   for name in ("quality_function", "loqo", "inertia_free")
+                   ] + [("k25", "float32")]
+# the batched steps of the bit-for-bit repeat read by torch.profiler for
+# the card's busy share: (first, count)
+BATCH_STEP_PROFILED = (5, 10)
+# The JAX package's float64 single solves of lanes 0, 5, 10 and 15 on the
+# CPU, (status, iterations, factorization_cnt, objective), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tools/spread.py lanes --pkg jax \
+#       --option OPT --dtype float64 --indices 0,5,10,15
+# (OPT: qf, loqo, free): status, iterations and factorizations exactly,
+# the objective within OBJ_RTOL.
+BATCH_STEP_JAX = {
+    "quality_function": {
+        0: ("SOLVE_SUCCEEDED", 35, 39, 482.97713399952283),
+        5: ("SOLVE_SUCCEEDED", 39, 47, 548.4943842809328),
+        10: ("SOLVE_SUCCEEDED", 31, 38, 620.9386667886148),
+        15: ("SOLVE_SUCCEEDED", 32, 36, 702.2010769340687),
+    },
+    "loqo": {
+        0: ("SOLVE_SUCCEEDED", 25, 25, 482.9771342732463),
+        5: ("SOLVE_SUCCEEDED", 25, 25, 548.4943835864325),
+        10: ("SOLVE_SUCCEEDED", 27, 27, 620.9386667887952),
+        15: ("SOLVE_SUCCEEDED", 31, 31, 702.2010768665211),
+    },
+    "inertia_free": {
+        0: ("SOLVE_SUCCEEDED", 24, 24, 482.97713389105974),
+        5: ("SOLVE_SUCCEEDED", 23, 23, 548.4943838946883),
+        10: ("SOLVE_SUCCEEDED", 26, 26, 620.9386671040447),
+        15: ("SOLVE_SUCCEEDED", 27, 27, 702.2010771923601),
+    },
+}
+# Compact L-BFGS inside the batch on the parametric flagship at
+# BATCH_EXACT_NB (at nb=600 a quasi-Newton lane stalls in about one
+# one-ulp twin in five, ROADMAP C4, so sixteen lanes all end in about 2%
+# of runs): every lane exactly the port's single solve on the card
+# (status, iterations, factorizations; backsolves within
+# BACKSOLVE_LANE_RTOL), and held to the JAX package's single solves
+# (BATCH_EXACT_JAX, from tools/spread.py lanes --pkg jax --option lbfgs
+# --dtype DT --nb 30 --indices 0,...,15) on the lanes where the two
+# packages' judged runs agree on the CPU (tools/spread.py lanes --pkg
+# port, the same arguments): status, iterations and factorizations
+# exactly, the objective within OBJ_RTOL.  Left out: float64 lanes 4 (JAX
+# 27 iterations, the port 28) and 13 (28 and 25), float32 lane 12 (26 and
+# 23), and the lanes that part from their single solve on the card
+# (BATCH_SPREAD: float64 lane 9, float32 lane 4).  Every batched factorization launches K4
+# once with 2·max_history columns (the SMW payload).
+BATCH_EXACT_NB = 30
+# The one-ulp spreads of the lanes that rounding parts from their single
+# solve on the card (every float64 lane at nb600 and every K2.5 lane equal
+# their single solves): {(run, dtype, nb): {lane: {counter: (lo, hi)}}},
+# the range of the port's single solves and of the batch's lane over x0
+# moved by at most one ulp, the judged run (seed 0) left out, on the card,
+# from
+#   python3 tools/spread.py lanes --pkg port|batch --device cuda \
+#       --option OPT --dtype DT --nb NB --indices 0,...,15 --first 0 \
+#       --seeds S
+# with S = 20 for the quality function and 12 for the others; the lanes
+# whose judged counts lay outside that first range (quality function 3, 7
+# and 15, float32 L-BFGS 4) ran seeds up to 60 (--first 21|13 --seeds 60).
+# A lane that parts is held to its spread: its counts and its single
+# solve's both inside it.
+BATCH_SPREAD = {
+    ('quality_function', 'float32', 600): {
+        2: {"iter": (29, 36), "factorization_cnt": (35, 46),
+             "backsolve_cnt": (104, 192)},   # seeds 1-20
+        3: {"iter": (29, 40), "factorization_cnt": (34, 52),
+             "backsolve_cnt": (99, 218)},   # seeds 1-60
+        4: {"iter": (28, 34), "factorization_cnt": (34, 43),
+             "backsolve_cnt": (100, 149)},   # seeds 1-20
+        5: {"iter": (30, 43), "factorization_cnt": (35, 58),
+             "backsolve_cnt": (127, 279)},   # seeds 1-20
+        6: {"iter": (31, 34), "factorization_cnt": (31, 35),
+             "backsolve_cnt": (79, 106)},   # seeds 1-20
+        7: {"iter": (28, 34), "factorization_cnt": (32, 41),
+             "backsolve_cnt": (97, 144)},   # seeds 1-60
+        8: {"iter": (34, 41), "factorization_cnt": (41, 50),
+             "backsolve_cnt": (125, 190)},   # seeds 1-20
+        9: {"iter": (32, 38), "factorization_cnt": (39, 48),
+             "backsolve_cnt": (121, 174)},   # seeds 1-20
+        12: {"iter": (30, 32), "factorization_cnt": (36, 39),
+             "backsolve_cnt": (99, 132)},   # seeds 1-20
+        13: {"iter": (35, 40), "factorization_cnt": (40, 46),
+             "backsolve_cnt": (112, 148)},   # seeds 1-20
+        15: {"iter": (32, 34), "factorization_cnt": (36, 42),
+             "backsolve_cnt": (95, 132)},   # seeds 1-60
+    },
+    ('loqo', 'float32', 600): {
+        4: {"iter": (26, 26), "factorization_cnt": (26, 27),
+             "backsolve_cnt": (62, 74)},   # seeds 1-12
+        7: {"iter": (26, 26), "factorization_cnt": (26, 29),
+             "backsolve_cnt": (70, 99)},   # seeds 1-12
+    },
+    ('inertia_free', 'float32', 600): {
+        1: {"iter": (23, 24), "factorization_cnt": (25, 27),
+             "backsolve_cnt": (169, 203)},   # seeds 1-12
+    },
+    ('compact_lbfgs', 'float64', 30): {
+        4: {"iter": (27, 28), "factorization_cnt": (27, 28),
+             "backsolve_cnt": (27, 29)},   # seeds 1-12
+        9: {"iter": (23, 31), "factorization_cnt": (23, 31),
+             "backsolve_cnt": (23, 37)},   # seeds 1-12
+    },
+    ('compact_lbfgs', 'float32', 30): {
+        4: {"iter": (27, 31), "factorization_cnt": (27, 31),
+             "backsolve_cnt": (60, 83)},   # seeds 1-60
+    },
+}
+BATCH_EXACT_JAX = {
+    "float64": {
+        0: ("SOLVE_SUCCEEDED", 36, 36, 22.458522982516776),
+        1: ("SOLVE_SUCCEEDED", 29, 29, 23.035545711781925),
+        2: ("SOLVE_SUCCEEDED", 28, 28, 23.629188613594827),
+        3: ("SOLVE_SUCCEEDED", 29, 29, 24.24031694313484),
+        5: ("SOLVE_SUCCEEDED", 29, 29, 25.51787024840906),
+        6: ("SOLVE_SUCCEEDED", 24, 24, 26.191165564665578),
+        7: ("SOLVE_SUCCEEDED", 22, 22, 26.904331160812948),
+        8: ("SOLVE_SUCCEEDED", 24, 24, 27.65261614245675),
+        10: ("SOLVE_SUCCEEDED", 24, 24, 29.22514777727186),
+        11: ("SOLVE_SUCCEEDED", 24, 24, 30.038862842692442),
+        12: ("SOLVE_SUCCEEDED", 23, 23, 30.871655249984638),
+        14: ("SOLVE_SUCCEEDED", 23, 23, 32.60424404412829),
+        15: ("SOLVE_SUCCEEDED", 24, 24, 33.50910614382818),
+    },
+    "float32": {
+        0: ("SOLVE_SUCCEEDED", 36, 36, 22.458522982516726),
+        1: ("SOLVE_SUCCEEDED", 29, 29, 23.035545711781893),
+        2: ("SOLVE_SUCCEEDED", 28, 28, 23.629188613594835),
+        3: ("SOLVE_SUCCEEDED", 29, 29, 24.240316943134886),
+        5: ("SOLVE_SUCCEEDED", 29, 29, 25.517870248409206),
+        6: ("SOLVE_SUCCEEDED", 24, 24, 26.191165564665546),
+        7: ("SOLVE_SUCCEEDED", 22, 22, 26.90433116081304),
+        8: ("SOLVE_SUCCEEDED", 24, 24, 27.652616142456726),
+        9: ("SOLVE_SUCCEEDED", 23, 23, 28.429888065674803),
+        10: ("SOLVE_SUCCEEDED", 24, 24, 29.225147777271843),
+        11: ("SOLVE_SUCCEEDED", 24, 24, 30.038862842692463),
+        13: ("SOLVE_SUCCEEDED", 25, 25, 31.724182046806998),
+        14: ("SOLVE_SUCCEEDED", 23, 23, 32.6042440441283),
+        15: ("SOLVE_SUCCEEDED", 24, 24, 33.50910614382807),
+    },
+}
+
 
 def emit(obj):
     print(json.dumps(obj, default=_plain), flush=True)
@@ -887,6 +1063,7 @@ def phase_kernels(torch):
                     for k, v in res["abs"].items():
                         worst[k] = max(worst.get(k, 0.0), v)
     check_k2_wide(torch)
+    worst["K4_wide"] = check_k4_wide(torch)
     return worst
 
 
@@ -949,6 +1126,90 @@ def check_k2_wide(torch):
                                      f"{WIDE_K} one-column launches at "
                                      f"{(b, bw, nb, dtype_name)}")
             out[(b, bw, dtype_name)] = times
+    return out
+
+
+WIDE_LANES = 16      # the batch's lanes
+WIDE_INACTIVE = 3    # a lane left out of the launch
+
+
+def check_k4_wide(torch):
+    """K4 on ``WIDE_K`` columns (the batched SMW solve of compact L-BFGS)
+    at the batch's geometry (b = 256, bw = 2, nb = 11) over
+    ``WIDE_LANES`` lanes, lane ``WIDE_INACTIVE`` inactive: against the
+    plain batched solve (within ``KERNEL_RTOL``), bit for bit against
+    ``WIDE_K`` one-column K4 launches, the inactive lane's right-hand
+    side back bit for bit; its launch plan, and its time by CUDA events
+    beside one column's and beside the plain solve's, with its bound
+    (bytes, :func:`_bounds` at k columns over the active lanes).  Returns
+    {dtype: its numbers}."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    b, bw, nb = WIDE_GEOMETRIES[0]
+    active = np.ones(WIDE_LANES, dtype=bool)
+    active[WIDE_INACTIVE] = False
+    out = {}
+    for dtype_name in ("float32", "float64"):
+        st, bands = _lane_bands(torch, b, bw, nb, dtype_name, WIDE_LANES)
+        every = np.ones(WIDE_LANES, dtype=bool)
+        f = bk.factorize_batched(
+            st, bands.clone(), bands.new_zeros((WIDE_LANES, st.nbp, b, b)),
+            bands.new_ones((WIDE_LANES, nb * b)), every)
+        rng = np.random.default_rng(b + bw + nb + WIDE_K + WIDE_LANES)
+        rhs = torch.as_tensor(rng.standard_normal((WIDE_LANES, st.N, WIDE_K)),
+                              dtype=bands.dtype, device=bands.device)
+        wide = plain.pad_rhs_batched(st, rhs)
+        x = wide.clone()
+        bk.banded_solve_batched_cuda(f.band, f.invL, f.d, x, active)
+        cols = []
+        for j in range(WIDE_K):
+            xj = wide[:, :, j:j + 1].clone()
+            bk.banded_solve_batched_cuda(f.band, f.invL, f.d, xj, active)
+            cols.append(xj)
+        torch.cuda.synchronize()
+        split = all(_same_bits(torch, x[:, :, j:j + 1], cols[j])
+                    for j in range(WIDE_K))
+        untouched = _same_bits(torch, x[WIDE_INACTIVE], wide[WIDE_INACTIVE])
+        ref = plain.banded_solve_batched(st, f, rhs, active)
+        rel = max(_rel(x[i, : st.N], ref[i]) for i in np.flatnonzero(active))
+        err = max(_abs(x[i, : st.N], ref[i]) for i in np.flatnonzero(active))
+        one = wide[:, :, :1].clone()
+        work = wide.clone()
+        times = {
+            f"k{WIDE_K}": _time_events(
+                torch, lambda: bk.banded_solve_batched_cuda(
+                    f.band, f.invL, f.d, x, active),
+                lambda: x.copy_(wide), WIDE_REPS),
+            "k1": _time_events(
+                torch, lambda: bk.banded_solve_batched_cuda(
+                    f.band, f.invL, f.d, one, active),
+                lambda: one.copy_(wide[:, :, :1]), WIDE_REPS),
+            f"k{WIDE_K}_plain": _time_events(
+                torch, lambda: plain.solve_padded_batched(
+                    f.band, f.invL, f.d, work, active),
+                lambda: work.copy_(wide), 3)}
+        bound = _bounds(nb, b, bw, bands.element_size(), dtype_name,
+                        lanes=int(active.sum()), k=WIDE_K)["K4"]
+        tol = KERNEL_RTOL[dtype_name]
+        emit({"phase": "kernels", "K4_columns": WIDE_K, "lanes": WIDE_LANES,
+              "inactive_lane": WIDE_INACTIVE, "b": b, "bw": bw, "nb": nb,
+              "N": st.N, "dtype": dtype_name, "max_rel_err_vs_plain": rel,
+              "max_abs_err_vs_plain": err, "tol": tol,
+              "equal_to_one_column_launches": split,
+              "inactive_lane_untouched": untouched, "ms": times,
+              "bound": bound,
+              "share_of_bound": bound["bound_ms"] / times[f"k{WIDE_K}"],
+              "plan": _plan_line(torch, f.band, x)})
+        if not torch.isfinite(x).all() or rel > tol:
+            raise AssertionError(f"K4 at k={WIDE_K} disagrees with plain "
+                                 f"({dtype_name}): {rel}")
+        if not split:
+            raise AssertionError(f"K4 at k={WIDE_K} differs from {WIDE_K} "
+                                 f"one-column launches ({dtype_name})")
+        if not untouched:
+            raise AssertionError(f"K4 at k={WIDE_K} wrote an inactive lane")
+        out[dtype_name] = {"ms": times, "bound": bound, "abs": err}
     return out
 
 
@@ -1442,9 +1703,10 @@ def _time_events(torch, fn, setup, reps):
     return statistics.median(times)
 
 
-def _bounds(nb, b, bw, itemsize, dtype, lanes=1):
+def _bounds(nb, b, bw, itemsize, dtype, lanes=1, k=1):
     """Least times (ms) for K1 and K2 at this geometry, and for K3 and K4
-    over ``lanes`` systems (each lane's K1 / K2 work, all lanes active):
+    over ``lanes`` systems (each lane's K1 / K2 work, all lanes active),
+    K2 and K4 on ``k`` right-hand-side columns:
     each input read once, each output written once; operations the
     algorithm needs on the real columns.  K1: LDLᵀ b³/3, unit-lower inverse
     b³/3, panel 2·bw·b³, trailing bw(bw+1)·b³ per column.  K2 reads only
@@ -1454,9 +1716,9 @@ def _bounds(nb, b, bw, itemsize, dtype, lanes=1):
     divisions."""
     flops1 = nb * b**3 * (2.0 / 3.0 + 2.0 * bw + bw * (bw + 1))
     bytes1 = ((2 * (nb + bw) * (bw + 1) * b * b) + nb * b * b + nb * b) * itemsize
-    flops2 = 4.0 * nb * (bw + 1) * b * b + nb * b
+    flops2 = k * (4.0 * nb * (bw + 1) * b * b + nb * b)
     bytes2 = (nb * bw * b * b + nb * b * b + nb * b
-              + 2 * (nb + bw) * b) * itemsize
+              + 2 * (nb + bw) * b * k) * itemsize
     out = {}
     # the diagonal step alone: one CTA, so one SM, per lane (lanes side by
     # side on separate SMs); it reads the block and writes the factor, the
@@ -3180,6 +3442,224 @@ def phase_step_options_exact(torch, port):
                       else "dense_ldlt_cuda")
 
 
+def _option_batch(torch, port, model, dtype, opts, profiled=None):
+    """One bulk ``solve_batch`` of ``model`` at BATCH_SCALES under the step
+    options ``opts`` on the card (model and set-up excluded from the
+    wall), every kernel's count set to 0 just before.  ``profiled``: a
+    dict that receives the device time of the BATCH_STEP_PROFILED window
+    of batched steps.  Returns (summary, wall, kernel counts, step counts,
+    the column counts of K4's calls)."""
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    solver = _banded_solver(port, model, dtype, **opts)
+    seen = _count_batch_steps(solver, len(BATCH_SCALES))
+    if profiled is not None:
+        _profile_steps(torch, solver, *BATCH_STEP_PROFILED, profiled)
+    widths = {}
+    solve_batched = bk.solve_batched
+
+    def counting(struct, f, rhs, active):
+        k = 1 if rhs.ndim == 2 else rhs.shape[2]
+        widths[k] = widths.get(k, 0) + 1
+        return solve_batched(struct, f, rhs, active)
+    bk.solve_batched = counting
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t = time.perf_counter()
+    try:
+        st = solver.solve_batch(BATCH_SCALES)
+        torch.cuda.synchronize()
+    finally:
+        bk.solve_batched = solve_batched
+    wall = time.perf_counter() - t
+    if profiled is not None and "device_busy_share" not in profiled:
+        raise AssertionError("the profiled window of batched steps did not "
+                             f"run: {seen['batched_steps']} steps")
+    return (port.batch_summary(solver.prob, st), wall, _all_counts(), seen,
+            widths)
+
+
+def _option_singles(port, model, dtype, opts):
+    """The port's single solve of each scale of BATCH_SCALES on the card
+    under ``opts`` (one solver, cold solves): (status, iterations,
+    factorizations, backsolves, objective) arrays."""
+    solver = _banded_solver(port, model, dtype, **opts)
+    out = []
+    for scale in BATCH_SCALES:
+        solver.state = None
+        s = solver.solve(params=float(scale))
+        out.append((int(s.status), s.iter, s.counters["factorization_cnt"],
+                    s.counters["backsolve_cnt"], s.objective))
+    return [np.array(v) for v in zip(*out)]
+
+
+def _check_option_batch(port, what, summ, counts, single, jax, widths=None,
+                        spread=None):
+    """Every lane against the port's single solve of its scale: exactly in
+    status, iterations and factorizations, backsolves within
+    BACKSOLVE_LANE_RTOL, or else (a lane that rounding parts from its
+    single solve) both solves' counters inside the lane's one-ulp spread
+    (``spread``: {lane: {counter: (lo, hi)}}); the objective within
+    OBJ_RTOL.  The lanes of ``jax`` ({lane: (status, iter, factorizations,
+    objective)}) exactly the JAX package's.  K3 and K4 launched, every
+    other kernel and witness never; under compact L-BFGS (``widths``) one
+    K4 launch of 2·max_history columns per batched factorization.
+    Returns (the objective's largest relative difference, the lanes held
+    to their spread)."""
+    c = summ["counters"]
+    status, iters, facts, backs, objs = single
+    spread = spread or {}
+    parted = []
+    for i in range(len(status)):
+        lane = (int(summ["status"][i]), int(summ["iter"][i]),
+                int(c["factorization_cnt"][i]), int(c["backsolve_cnt"][i]))
+        ref = (int(status[i]), int(iters[i]), int(facts[i]), int(backs[i]))
+        if lane[:3] == ref[:3] and abs(lane[3] - ref[3]) <= \
+                BACKSOLVE_LANE_RTOL * ref[3]:
+            continue
+        box = spread.get(i)
+        inside = box is not None and lane[0] == ref[0] and all(
+            lo <= v[k] <= hi
+            for v in (lane, ref)
+            for k, (lo, hi) in zip((1, 2, 3), (box["iter"],
+                                               box["factorization_cnt"],
+                                               box["backsolve_cnt"])))
+        if not inside:
+            raise AssertionError(f"{what} lane {i}: (status, iter, "
+                                 f"factorizations, backsolves) {lane}, "
+                                 f"single {ref}, spread {box}")
+        parted.append(i)
+    rel = np.abs(summ["objective"] - objs) / np.abs(objs)
+    if rel.max() > OBJ_RTOL or not np.isfinite(summ["x"]).all():
+        raise AssertionError(f"{what}: objective off by {rel.max()!r}")
+    for i, (jstatus, jiter, jfacts, jobj) in jax.items():
+        lane = (port.Status(int(summ["status"][i])).name,
+                int(summ["iter"][i]), int(c["factorization_cnt"][i]))
+        if lane != (jstatus, jiter, jfacts) or abs(
+                summ["objective"][i] - jobj) > OBJ_RTOL * abs(jobj):
+            raise AssertionError(f"{what} lane {i}: {lane} "
+                                 f"{summ['objective'][i]!r}, JAX "
+                                 f"{(jstatus, jiter, jfacts, jobj)}")
+    others = dict(counts)
+    _no_witness(others)
+    k3 = others.pop("banded_factorize_batched_cuda")
+    k4 = others.pop("banded_solve_batched_cuda")
+    if k3 == 0 or k4 == 0 or any(others.values()):
+        raise AssertionError(f"{what}: kernels launched {counts}")
+    if widths is not None:
+        wide = widths.get(2 * STEP_QN_HISTORY, 0)
+        if wide != k3:
+            raise AssertionError(f"{what}: {wide} K4 launches of "
+                                 f"{2 * STEP_QN_HISTORY} columns, {k3} "
+                                 f"batched factorizations")
+    return float(rel.max()), parted
+
+
+def _option_batch_line(port, what, summ, wall, counts, seen, widths, single,
+                       rel, parted):
+    c = summ["counters"]
+    k3 = counts["banded_factorize_batched_cuda"]
+    k4 = counts["banded_solve_batched_cuda"]
+    lane_iters = int(summ["iter"].sum())
+    return {"run": what, "lanes": len(BATCH_SCALES),
+            "status": [port.Status(int(v)).name for v in summ["status"]],
+            "iter": summ["iter"].tolist(),
+            "factorization_cnt": c["factorization_cnt"].tolist(),
+            "backsolve_cnt": c["backsolve_cnt"].tolist(),
+            "iter_single": single[1].tolist(),
+            "factorization_cnt_single": single[2].tolist(),
+            "backsolve_cnt_single": single[3].tolist(),
+            "lanes_held_to_their_spread": parted,
+            "objective_max_rel_err_single": rel,
+            "batched_steps": seen["batched_steps"],
+            "K3_launches": k3, "K4_launches": k4,
+            "K4_per_batched_step": k4 / seen["batched_steps"],
+            "K4_launches_by_columns": widths,
+            "launches": counts, "wall_s": wall,
+            "lane_iterations": lane_iters,
+            "lane_iter_per_s": lane_iters / wall}
+
+
+def phase_batch_step_options(torch, port):
+    """The step options inside ``solve_batch`` on the parametric flagship
+    at BATCH_SCALES (K3/K4): each of BATCH_STEP_RUNS in one bulk run,
+    every lane against the port's single solve of its scale on the card
+    and lanes 0, 5, 10 and 15 against the JAX package's float64 single
+    solves (BATCH_STEP_JAX); the run repeated, bit for bit, with the
+    BATCH_STEP_PROFILED window of its batched steps under torch.profiler
+    for the card's busy share; TIMED_BATCHES more bulk runs, each bit for
+    bit the first, for the median lane-iterations per second."""
+    from madnlp_tpu_torch.models.instances import opf
+
+    model = opf.build_sparse(nb=600, seed=0, parametric=True)
+    out = {}
+    for name, dtype in BATCH_STEP_RUNS:
+        what = f"batch {dtype} {name}"
+        opts = _options(port, BATCH_STEP_OPTIONS[name])
+        single = _option_singles(port, model, dtype, opts)
+        summ, wall, counts, seen, widths = _option_batch(
+            torch, port, model, dtype, opts)
+        jax = BATCH_STEP_JAX.get(name, {}) if dtype == "float64" else {}
+        rel, parted = _check_option_batch(
+            port, what, summ, counts, single, jax,
+            spread=BATCH_SPREAD.get((name, dtype, 600)))
+        line = _option_batch_line(port, what, summ, wall, counts, seen,
+                                  widths, single, rel, parted)
+        prof = {}
+        again, _, _, _, _ = _option_batch(torch, port, model, dtype, opts,
+                                          profiled=prof)
+        same = _same_batch(again, summ)
+        walls = []
+        for _ in range(TIMED_BATCHES):
+            again, w, _, _, _ = _option_batch(torch, port, model, dtype, opts)
+            same = same and _same_batch(again, summ)
+            walls.append(w)
+        med = statistics.median(walls)
+        line.update(jax_lanes=sorted(jax), repeat_bit_identical=same,
+                    timed_walls_s=walls, median_wall_s=med,
+                    median_lane_iter_per_s=line["lane_iterations"] / med,
+                    profiled_batched_steps=prof["batched_steps"],
+                    device_busy_share=prof["device_busy_share"],
+                    device_busy_ms=prof["device_busy_ms"],
+                    profiled_wall_ms=prof["wall_ms"],
+                    device_top_ms=prof["top_ms"])
+        emit({"phase": "batch_step_options", **line})
+        if not same:
+            raise AssertionError(f"{what}: a repeated batch differs")
+        out[(name, dtype)] = line
+    return out
+
+
+def phase_batch_step_options_exact(torch, port):
+    """Compact L-BFGS inside ``solve_batch`` on the parametric flagship at
+    BATCH_EXACT_NB and BATCH_SCALES, float64 and float32: every lane
+    exactly the port's single solve on the card, the lanes of
+    BATCH_EXACT_JAX the JAX package's; one K4 launch of 2·max_history
+    columns per batched factorization.  Returns the float32 run's K4
+    launches at that width."""
+    from madnlp_tpu_torch.models.instances import opf
+
+    model = opf.build_sparse(nb=BATCH_EXACT_NB, seed=0, parametric=True)
+    opts = _options(port, STEP_BANDED["compact_lbfgs"])
+    out = {}
+    for dtype in ("float64", "float32"):
+        what = f"batch {dtype} compact_lbfgs nb={BATCH_EXACT_NB}"
+        single = _option_singles(port, model, dtype, opts)
+        summ, wall, counts, seen, widths = _option_batch(
+            torch, port, model, dtype, opts)
+        rel, parted = _check_option_batch(
+            port, what, summ, counts, single, BATCH_EXACT_JAX.get(dtype, {}),
+            widths, BATCH_SPREAD.get(("compact_lbfgs", dtype,
+                                      BATCH_EXACT_NB)))
+        line = _option_batch_line(port, what, summ, wall, counts, seen,
+                                  widths, single, rel, parted)
+        emit({"phase": "batch_step_options_exact", "nb": BATCH_EXACT_NB,
+              "jax_lanes": sorted(BATCH_EXACT_JAX.get(dtype, {})),
+              "hess_cnt": summ["counters"]["hess_cnt"].tolist(), **line})
+        out[dtype] = widths.get(2 * STEP_QN_HISTORY, 0)
+    return out
+
+
 def _options(port, opts):
     """Option names as the port's enums (``"BarrierUpdate.LOQO"``)."""
     out = {}
@@ -3236,6 +3716,8 @@ def main():
     timed(phase_step_options)
     timed(phase_step_options_dense)
     timed(phase_step_options_exact)
+    timed(phase_batch_step_options)
+    k4_wide = timed(phase_batch_step_options_exact)
 
     kernels = []
     for path, i, name, key, errs, line in (
@@ -3306,6 +3788,20 @@ def main():
             "bound_by": path["bounds"][key]["bound_by"],
             "library_ms": None,
         })
+    # K4 on the 2·max_history columns of the batched SMW payload: its
+    # launches over the float32 compact L-BFGS batch, its time and bound
+    # from the kernels phase
+    wide32 = worst["K4_wide"]["float32"]
+    kernels.append({
+        "name": f"banded_solve_batched_cuda (k={WIDE_K}, SMW)",
+        "route": "cuda", "source": "madnlp_tpu_torch/csrc/banded_ldlt.cu",
+        "replaces": "madnlp_tpu/ops/pallas_banded_stream.py:620",
+        "launches": k4_wide["float32"], "max_abs_err": wide32["abs"],
+        "ms": wide32["ms"][f"k{WIDE_K}"],
+        "plain_ms": wide32["ms"][f"k{WIDE_K}_plain"],
+        "bound_ms": wide32["bound"]["bound_ms"],
+        "bound_by": wide32["bound"]["bound_by"], "library_ms": None,
+    })
     t32, b32 = main_matrix["times"]["float32"], main_matrix["bounds"]["float32"]
     kernels.append({
         "name": "dense_ldlt_cuda", "route": "cuda",

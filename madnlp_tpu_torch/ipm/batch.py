@@ -24,6 +24,14 @@ broadcast over the lane axis; the scalar predicates run lane by lane.  Every
 factorization goes through the batched band kernel K3 and every backsolve
 through K4, under the mask of the lanes that need them.
 
+The step options run per lane as in the single solve: the adaptive
+barriers (:func:`.barrier.update_barrier_adaptive_lanes`, whose probing
+solves read each lane's last factorization, ``BatchState.ctx``), the
+inertia-free and inertia-ignoring corrections of the δ ladder, compact
+L-BFGS (:func:`.quasi_newton.lbfgs_update_compact_lanes`, its SMW payload
+one K4 launch of 2p columns per factorization), GMRES refinement and the
+K2.5 scaling (both inside the KKT system).
+
 :meth:`BatchKernel.step` is one step of the three-phase state machine
 (``batched_step``): the regular, soft restoration and robust restoration
 passes each run on the lanes whose status held that phase at the start of
@@ -43,12 +51,27 @@ import math
 import numpy as np
 import torch
 
-from ..kkt.vec import KKTVec, kkt_where
-from ..utils.options import DualInitialization
+from ..kkt.vec import KKTVec, lane_where
+from ..utils.options import (
+    BarrierUpdate,
+    DualInitialization,
+    HessianApproximation,
+    InertiaCorrection,
+)
 from ..utils.status import Status as S
 from . import kernels as K
+from .barrier import update_barrier_adaptive_lanes
+from .quasi_newton import init_hessian_lowrank_lanes, lbfgs_update_compact_lanes
 from .state import BatchState, batch_state_zeros
 from .step import Kernel
+
+
+def _finite_lanes(v) -> torch.Tensor:
+    """Per lane: every entry of ``v (B, ...)``, or of each tensor of a
+    batched LowRankHessian, is finite."""
+    if isinstance(v, tuple):
+        return torch.stack([_finite_lanes(a) for a in v]).all(0)
+    return torch.isfinite(v).reshape(v.shape[0], -1).all(-1)
 
 
 class BatchKernel:
@@ -60,6 +83,7 @@ class BatchKernel:
         self.lb, self.ub = kernel.lb, kernel.ub
         self.llb, self.uub = kernel.llb, kernel.uub
         self.eps = kernel.eps
+        self.inertia_method = kernel.inertia_method
 
     # ------------------------------------------------------------------
     # helpers
@@ -71,15 +95,12 @@ class BatchKernel:
                                device=self.prob.device)
 
     def _sel(self, mask, new, old):
-        """Lane by lane: ``new`` where the numpy mask holds, else ``old``."""
+        """Lane by lane: ``new`` where the numpy mask holds, else ``old``
+        (tensors with a lane axis, or tuples of them: a KKTVec, a KKT
+        context)."""
         on = torch.as_tensor(np.asarray(mask, dtype=bool),
                              device=self.prob.device)
-        return torch.where(on.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
-
-    def _sel_vec(self, mask, new: KKTVec, old: KKTVec) -> KKTVec:
-        on = torch.as_tensor(np.asarray(mask, dtype=bool),
-                             device=self.prob.device)
-        return kkt_where(on, new, old)
+        return lane_where(on, new, old)
 
     def slacks(self, x, xl, xu):
         return K.slacks(x, xl, xu, self.lb, self.ub)
@@ -94,6 +115,62 @@ class BatchKernel:
     def eval_cons(self, st, w):
         return self.prob.eval_cons(st.scal, w, st.theta)
 
+    def _persist(self, st: BatchState, ctx, lanes) -> None:
+        """Keep ``ctx`` as the last factorization of the lanes in
+        ``lanes`` (adaptive barriers only; the f64 operator band dropped,
+        as :meth:`.step.Kernel.persist_context` does)."""
+        ctx = self.single.persist_context(ctx)
+        if ctx is not None:
+            st.ctx = self._sel(lanes, ctx, st.ctx)
+
+    def _zero_context(self, lanes: int):
+        """The single solve's zero context on every lane."""
+        def spread(v):
+            if v is None:
+                return None
+            if isinstance(v, tuple):
+                items = [spread(a) for a in v]
+                return (type(v)(*items) if hasattr(v, "_fields")
+                        else tuple(items))
+            return v.expand((lanes,) + v.shape).clone()
+
+        return spread(self.kkt.zero_context())
+
+    # ------------------------------------------------------------------
+    # quasi-Newton / exact Hessian refresh (callbacks.jl:145-190), per lane
+    # ------------------------------------------------------------------
+
+    def _refresh_hessian(self, st: BatchState, lanes,
+                         is_resto: bool = False) -> None:
+        """:meth:`.step.Kernel._refresh_hessian` of the lanes in
+        ``lanes``: the model's Hessian, or each lane's compact L-BFGS
+        update from its secant pair (the Gilbert–Lemaréchal start where
+        the lane has no gradient pair yet)."""
+        p, o = self.prob, self.opts
+        if self.single.hess_approx == HessianApproximation.EXACT:
+            st.hess = self._sel(lanes, p.eval_lag_hess(
+                st.scal, st.x, st.y, st.theta, is_resto=is_resto), st.hess)
+            st.hess_cnt[lanes] += 1
+            return
+        n = p.n
+        qn = st.qn
+        secant = lanes & (st.grad_cnt >= 2)
+        if secant.any():
+            sk = st.x[:, :n] - qn.last_x
+            yk = st.f[:, :n] - qn.last_g
+            if p.m > 0:
+                yk = yk + st.jacl[:, :n]
+                yk = yk - p.eval_jtprod_x(st.scal, qn.last_x, st.y, st.theta)
+            st.hess, qn = lbfgs_update_compact_lanes(
+                st.hess, qn, sk, yk, o.quasi_newton_options, secant)
+        start = lanes & ~secant
+        if start.any():
+            st.hess = init_hessian_lowrank_lanes(
+                st.hess, st.f[:, :n], st.obj_val,
+                o.quasi_newton_options.init_value, start)
+        st.qn = qn._replace(last_x=self._sel(lanes, st.x[:, :n], qn.last_x),
+                            last_g=self._sel(lanes, st.f[:, :n], qn.last_g))
+
     # ------------------------------------------------------------------
     # initialization (solver.jl:14-77 + nlpmodels.jl:593-636), per lane
     # ------------------------------------------------------------------
@@ -103,8 +180,9 @@ class BatchKernel:
         p, o = self.prob, self.opts
         dev = p.device
         B = int(theta.shape[0])
-        st = batch_state_zeros(B, p.nw, p.m, p.nnzj_aug, len(p.hess_rows),
-                               o.filter_capacity, theta, dev)
+        st = batch_state_zeros(B, p.nw, p.m, p.nnzj_aug, p.hess_template(B),
+                               o.filter_capacity, theta, dev, n=p.n,
+                               qn_mem=self.single.qn_mem)
         lb, ub = self.lb, self.ub
 
         xl = torch.as_tensor(p.xl0, device=dev)
@@ -151,19 +229,29 @@ class BatchKernel:
         st.f = p.eval_grad(scal, w0, theta)
         obj = p.eval_obj(scal, w0, theta)
         st.c = p.eval_cons(scal, w0, theta)
-        st.hess = p.eval_lag_hess(scal, w0, st.y, theta)
         st.jacl = self.kkt.jtprod(st.jac, st.y)
-        for c in ("obj_cnt", "grad_cnt", "con_cnt", "jac_cnt", "hess_cnt"):
+        for c in ("obj_cnt", "grad_cnt", "con_cnt", "jac_cnt"):
             getattr(st, c)[:] = 1
+        every = np.ones(B, dtype=bool)
+        if self.single.hess_approx == HessianApproximation.EXACT:
+            st.hess = p.eval_lag_hess(scal, w0, st.y, theta)
+            st.hess_cnt[:] = 1
+        else:
+            st.hess = init_hessian_lowrank_lanes(
+                st.hess, st.f[:, :n], obj.to(torch.float64).cpu().numpy(),
+                o.quasi_newton_options.init_value, every)
+            st.qn = st.qn._replace(last_x=w0[:, :n], last_g=st.f[:, :n])
+        if self.single._persist_ctx:
+            st.ctx = self._zero_context(B)
 
         if (not o.dual_initialized
                 and o.dual_initialization_method == DualInitialization.LEAST_SQUARES
                 and p.m > 0):
-            st.y = self._least_squares_duals(st)
+            st.y, ls_ctx = self._least_squares_duals(st)
+            self._persist(st, ls_ctx, every)
             st.jacl = self.kkt.jtprod(st.jac, st.y)
 
-        finite = [torch.isfinite(v).all(-1)
-                  for v in (st.hess, st.jac, st.c, st.f)]
+        finite = [_finite_lanes(v) for v in (st.hess, st.jac, st.c, st.f)]
         read = torch.stack(finite + [torch.isfinite(obj)], -1).to(torch.float64)
         read = torch.cat([read, torch.stack([K.get_theta(st.c),
                                              obj.to(torch.float64)], -1)], -1)
@@ -186,7 +274,8 @@ class BatchKernel:
     def _least_squares_duals(self, st: BatchState, lanes=None):
         """The single solve's least-squares duals of the lanes in ``lanes``
         (every lane by default; zero on the others): one uncounted K3
-        factorization and its refinement."""
+        factorization and its refinement.  Returns the duals and the
+        factorization's context."""
         p = self.prob
         B = st.lanes
         if lanes is None:
@@ -202,11 +291,20 @@ class BatchKernel:
         d, ok, _ = self.kkt.solve_refine(ctx, rhs, active=lanes)
         too_big = (d.y.abs().amax(-1).cpu().numpy()
                    > self.opts.constr_mult_init_max)
-        return self._sel(ok & ~too_big, d.y, torch.zeros_like(d.y))
+        return self._sel(ok & ~too_big, d.y, torch.zeros_like(d.y)), ctx
 
     # ------------------------------------------------------------------
-    # barrier update (monotone; barrier.jl:12-34)
+    # barrier update (monotone, barrier.jl:12-34; adaptive: barrier.py)
     # ------------------------------------------------------------------
+
+    def update_barrier(self, st: BatchState, sc, act):
+        b = self.opts.barrier
+        if b == BarrierUpdate.MONOTONE:
+            return self.update_barrier_monotone(st, sc, act)
+        return update_barrier_adaptive_lanes(
+            self, st, sc, act,
+            "quality_function" if b == BarrierUpdate.QUALITY_FUNCTION
+            else "loqo")
 
     def update_barrier_monotone(self, st: BatchState, sc, act):
         o = self.opts
@@ -283,33 +381,56 @@ class BatchKernel:
 
     def inertia_correction(self, st: BatchState, p_rhs: KKTVec, act,
                            rr: bool = False):
-        """The δ ladder of every lane in ``act`` at once: each attempt
-        factors (K3) and solves only the lanes still climbing, the others
-        keep their factor and direction.  ``rr``: the robust-restoration
-        system, whose solves keep the exact refinement tolerance and whose
-        δ_c follows μ_R.  Returns (ctx, d, success (B,))."""
+        """The δ ladder of every lane in ``act`` at once, under the
+        resolved inertia strategy: each attempt factors (K3) and solves
+        only the lanes still climbing, the others keep their factor and
+        direction.  ``rr``: the robust-restoration system, whose solves
+        keep the exact refinement tolerance and whose δ_c follows μ_R.
+        Returns (ctx, d, success (B,))."""
         o, p = self.opts, self.prob
         B = st.lanes
         ok = np.zeros(B, dtype=bool)
-        nzero = np.zeros(B, dtype=np.int64)
+        # the strategies that see no inertia take δ_c on every retry
+        nzero = np.ones(B, dtype=np.int64)
         ctx = d = None
         mu_refine = None if rr else st.mu
         mu = st.RR.mu_R if rr else st.mu
+        method = self.inertia_method
+        if method == InertiaCorrection.FREE:
+            g, p0 = self.single._free_test_data(st, self._t(mu))
+
+        def solve(ctx, rhs, lanes):
+            return self.kkt.solve_refine(ctx, rhs, mu=mu_refine, active=lanes)
 
         def attempt(lanes, del_w, del_c):
             nonlocal ctx, d
             ctx = self._factorize(st, del_w, del_c, lanes, ctx, rr=rr)
-            pos, zero, _ = self.kkt.inertia(ctx).T
-            # the solve runs (and is counted) whatever the inertia
-            dn, solved, iters = self.kkt.solve_refine(ctx, p_rhs, mu=mu_refine,
-                                                      active=lanes)
-            d = dn if d is None else self._sel_vec(lanes, dn, d)
+            if method == InertiaCorrection.BASED:
+                pos, zero, _ = self.kkt.inertia(ctx).T
+                # the solve runs (and is counted) whatever the inertia
+                dn, solved, iters = solve(ctx, p_rhs, lanes)
+                good = (zero == 0) & (pos == p.nw) & solved
+                nzero[lanes] = zero[lanes]
+            elif method == InertiaCorrection.IGNORE:
+                dn, good, iters = solve(ctx, p_rhs, lanes)
+            else:
+                # the normal step d₀, the full step and the curvature
+                # test of t = d - d₀ (see Kernel._attempt_free)
+                d0, ok0, it0 = solve(ctx, p0, lanes)
+                dn, ok1, it1 = solve(ctx, p_rhs, lanes)
+                iters = it0 + it1
+                t = dn.xp - d0.xp
+                wx = self.kkt.mul_hess_blk(ctx, t)
+                tWt, tWd0, gd0, tt = torch.stack([
+                    (wx * t).sum(-1), (wx * d0.xp).sum(-1),
+                    (g * d0.xp).sum(-1), (t * t).sum(-1)]).cpu().numpy()
+                good = ok0 & ok1 & ((tWt + np.maximum(tWd0 - gd0, 0.0)
+                                     - o.inertia_free_tol * tt) >= 0.0)
+            d = dn if d is None else self._sel(lanes, dn, d)
             st.factorization_cnt[lanes] += 1
             st.backsolve_cnt[lanes] += iters[lanes]
             st.last_ir[lanes] = iters[lanes]
-            good = (zero == 0) & (pos == p.nw) & solved
             ok[lanes] = good[lanes]
-            nzero[lanes] = zero[lanes]
 
         del_w = np.zeros(B)
         del_c = np.zeros(B)
@@ -635,15 +756,14 @@ class BatchKernel:
         # Hessian refresh
         refresh = act & (st.k > 0)
         if not o.hessian_constant and refresh.any():
-            st.hess = self._sel(
-                refresh, p.eval_lag_hess(st.scal, st.x, st.y, st.theta),
-                st.hess)
-            st.hess_cnt[refresh] += 1
-        self.update_barrier_monotone(st, sc, act)
+            self._refresh_hessian(st, refresh)
+        # (an adaptive rule's probing solves read st.ctx, the stale factor)
+        self.update_barrier(st, sc, act)
         p_rhs = self._aug_rhs(st, st.c, st.mu)
         ctx, d, ok = self.inertia_correction(st, p_rhs, act)
-        st.d = self._sel_vec(act, d, st.d)
-        st.p = self._sel_vec(act, p_rhs, st.p)
+        st.d = self._sel(act, d, st.d)
+        st.p = self._sel(act, p_rhs, st.p)
+        self._persist(st, ctx, act)
         # solver.jl:646-649: k += 1 before switching to robust restoration
         fail = act & ~ok
         st.status[fail] = int(S.ROBUST)
@@ -789,15 +909,14 @@ class BatchKernel:
         nlp_converged = np.maximum(np.maximum(inf_pr, inf_du),
                                    inf_compl) <= o.tol
         if not o.hessian_constant:
-            st.hess = self._sel(
-                run, p.eval_lag_hess(st.scal, st.x, st.y, st.theta), st.hess)
-            st.hess_cnt[run] += 1
+            self._refresh_hessian(st, run)
         p_rhs = self._aug_rhs(st, st.c, st.mu)
         ctx = self._factorize(st, np.zeros(B), np.zeros(B), run, None)
+        self._persist(st, ctx, run)
         # restoration solves keep the exact refinement tolerance
         d, _, iters = self.kkt.solve_refine(ctx, p_rhs, mu=None, active=run)
-        st.d = self._sel_vec(run, d, st.d)
-        st.p = self._sel_vec(run, p_rhs, st.p)
+        st.d = self._sel(run, d, st.d)
+        st.p = self._sel(run, p_rhs, st.p)
         st.factorization_cnt[run] += 1
         st.backsolve_cnt[run] += iters[run]
         st.last_ir[run] = iters[run]
@@ -1047,7 +1166,7 @@ class BatchKernel:
         recover = solved & (inf_pr <= o.tol)
         if recover.any():
             y_old, jacl_old = st.y, st.jacl
-            y_new = self._least_squares_duals(st, recover)
+            y_new, _ = self._least_squares_duals(st, recover)
             st.y = self._sel(recover, y_new, st.y)
             st.jacl = self._sel(recover, self.kkt.jtprod(st.jac, y_new),
                                 st.jacl)
@@ -1068,13 +1187,12 @@ class BatchKernel:
 
         self._update_monotone_RR(st, sc, run)
         if not o.hessian_constant:
-            st.hess = self._sel(run, p.eval_lag_hess(
-                st.scal, st.x, st.y, st.theta, is_resto=True), st.hess)
-            st.hess_cnt[run] += 1
+            self._refresh_hessian(st, run, is_resto=True)
         p_rhs = self.single._aug_rhs_RR(st, self._t(R.mu_R))
-        st.p = self._sel_vec(run, p_rhs, st.p)
-        _, d, ok = self.inertia_correction(st, p_rhs, run, rr=True)
-        st.d = self._sel_vec(run, d, st.d)
+        st.p = self._sel(run, p_rhs, st.p)
+        ctx, d, ok = self.inertia_correction(st, p_rhs, run, rr=True)
+        st.d = self._sel(run, d, st.d)
+        self._persist(st, ctx, run)
         st.status[run & ~ok] = int(S.RESTORATION_FAILED)
         go = run & ok
         if not go.any():
@@ -1127,7 +1245,9 @@ class BatchKernel:
         back = acc & self._filter_ok(st.filter, acc, theta, varphi) & (
             theta <= o.required_infeasibility_reduction * R.theta_ref)
         if back.any():
-            st.y = self._sel(back, self._least_squares_duals(st, back), st.y)
+            y_ls, ls_ctx = self._least_squares_duals(st, back)
+            st.y = self._sel(back, y_ls, st.y)
+            self._persist(st, ls_ctx, back)
         st.status[back] = int(S.REGULAR)
         st.status[acc & ~back] = int(S.ROBUST)
         return st

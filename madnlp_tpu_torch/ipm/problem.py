@@ -283,7 +283,7 @@ class SparseProblem(Problem):
         quasi-Newton secant)."""
         vals = self._call(self.model.jac_coords, x, theta=theta)
         ys = y * scal.con_scale
-        out = segment_sum(vals * ys[self.t.jac_rows], self.t.col_table)
+        out = segment_sum(vals * ys[..., self.t.jac_rows], self.t.col_table)
         if self.fixed_mask.any():
             out = torch.where(self.t.fixed, 0.0, out)
         return out
@@ -329,14 +329,15 @@ class SparseProblem(Problem):
         return self.zeros(self.nnzj_aug)
 
     def hess_template(self, lanes: int = None):
-        """The Hessian's zero values; under compact L-BFGS (one solve) the
-        zero :class:`.quasi_newton.LowRankHessian`, whose diagonal the KKT
-        system assembles and whose low-rank part it applies by SMW."""
-        if (lanes is None and self.opts.hessian_approximation
+        """The Hessian's zero values; under compact L-BFGS the zero
+        :class:`.quasi_newton.LowRankHessian`, whose diagonal the KKT
+        system assembles and whose low-rank part it applies by SMW; with
+        ``lanes``, one per lane."""
+        if (self.opts.hessian_approximation
                 == HessianApproximation.COMPACT_LBFGS):
             return lowrank_zeros(self.n,
                                  self.opts.quasi_newton_options.max_history,
-                                 self.device)
+                                 self.device, lanes)
         lead = () if lanes is None else (lanes,)
         return self.zeros(*lead, len(self.hess_rows))
 

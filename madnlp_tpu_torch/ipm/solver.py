@@ -31,9 +31,7 @@ from ..kkt.sparse import SparseKKT
 from ..ops.banded import kkt_interleaved_ordering
 from ..utils import log as logfmt
 from ..utils.options import (
-    BarrierUpdate,
     HessianApproximation,
-    InertiaCorrection,
     KKTSystem,
     LinearSolver,
     MadNLPOptions,
@@ -322,31 +320,21 @@ class MadNLPSolver:
         Each lane runs the single solve's three-phase state machine: a
         lane that needs soft or robust restoration (an overloaded scenario)
         takes its restoration steps inside the batch, while a finished lane
-        waits unchanged (:meth:`.batch.BatchKernel.step`).
+        waits unchanged (:meth:`.batch.BatchKernel.step`).  Every step
+        option of the single solve runs per lane: the adaptive barriers,
+        the inertia-free and inertia-ignoring corrections, compact L-BFGS
+        (its SMW payload one K4 launch of 2p columns per factorization),
+        GMRES refinement and the K2.5 scaling.
 
         Returns the final :class:`BatchState` in the original lane order;
-        summary arrays via :func:`batch_summary`.  ``sharding``, and the
-        step options the batch does not implement (a barrier rule other
-        than monotone, a quasi-Newton Hessian, the inertia-free or
-        inertia-ignoring correction, GMRES, K2.5 scaling), raise
-        NotImplementedError (later slices of the port)."""
+        summary arrays via :func:`batch_summary`.  ``sharding`` and dense
+        KKT storage raise NotImplementedError (later slices of the
+        port)."""
         if sharding is not None:
             raise _later("sharding= (a multi-device solve_batch)")
         if not getattr(self.kernel.kkt, "banded", False):
             raise _later("solve_batch with dense KKT storage or a "
                          "dense-callback model")
-        o = self.opts
-        for name, value, default in (
-                ("barrier", o.barrier, BarrierUpdate.MONOTONE),
-                ("hessian_approximation", o.hessian_approximation,
-                 HessianApproximation.EXACT),
-                ("inertia_correction_method", self.kernel.inertia_method,
-                 InertiaCorrection.BASED),
-                ("iterator", o.iterator, "richardson")):
-            if value != default:
-                raise _later(f"{name}={value} in solve_batch")
-        if o.kkt_scaling == "k25":
-            raise _later("kkt_scaling='k25' in solve_batch")
         theta = torch.as_tensor(np.asarray(params_batch, dtype=np.float64),
                                 device=self.device)
         B = int(theta.shape[0])

@@ -24,13 +24,15 @@ plus ``theta``, the lanes' model parameters.  Its restoration part is the
 same as one solve's with a lane axis: the soft restoration's backups
 ``(B, ·)``, ``soft_F`` and ``rr_init_needed`` ``(B,)``, and ``RR`` an
 :class:`RRState` whose vectors are ``(B, ·)``, whose scalars are ``(B,)``
-numpy arrays and whose filter is ``(B, capacity)``.  A batch runs the
-exact Hessian and the monotone barrier only (``solve_batch`` refuses the
-other step options), so it has no ``qn``, ``barrier_free_mode`` or
-``ctx``.
+numpy arrays and whose filter is ``(B, capacity)``.  So are the step
+options' fields: ``qn`` a :class:`.quasi_newton.QNState` with a lane
+axis, ``hess`` a batched :class:`.quasi_newton.LowRankHessian` under
+compact L-BFGS, ``barrier_free_mode`` a ``(B,)`` bool array, and ``ctx``
+the batched KKT context of each lane's last factorization (adaptive
+barriers only, else None).
 :meth:`BatchState.take`, :func:`split_lanes` and :func:`stack_lanes`
-reorder, chunk and rejoin lanes; :func:`batch_state_from_arrays` carries a
-batch of JAX states across.
+reorder, chunk and rejoin lanes, every field included;
+:func:`batch_state_from_arrays` carries a batch of JAX states across.
 """
 
 from __future__ import annotations
@@ -305,7 +307,7 @@ class BatchState:
     f: torch.Tensor
     c: torch.Tensor
     jac: torch.Tensor
-    hess: torch.Tensor
+    hess: object            # (B, nnzh) values, or a batched LowRankHessian
     jacl: torch.Tensor
     x_trial: torch.Tensor
     c_trial: torch.Tensor
@@ -353,6 +355,11 @@ class BatchState:
     # robust restoration: an RRState with a lane axis
     RR: RRState = None
     rr_init_needed: np.ndarray = None
+    # step options, per lane: the quasi-Newton memory, the adaptive
+    # barrier's mode, the last factorization's context (adaptive barriers)
+    qn: QNState = None
+    barrier_free_mode: np.ndarray = None
+    ctx: object = None
 
     @property
     def lanes(self) -> int:
@@ -364,19 +371,25 @@ class BatchState:
         idx = torch.as_tensor(order, device=self.x.device)
 
         def pick(v):
-            if isinstance(v, (KKTVec, Scaling)):
-                return type(v)(*(a[idx] for a in v))
-            if isinstance(v, Filter):
-                return Filter(*(a[order].copy() for a in v))
+            if v is None:
+                return None
             if isinstance(v, RRState):
                 return RRState(**{f.name: pick(getattr(v, f.name))
                                   for f in dataclasses.fields(v)})
+            if isinstance(v, tuple):
+                return _rebuild(v, [pick(a) for a in v])
             if torch.is_tensor(v):
                 return v[idx]
             return v[order].copy()
 
         return BatchState(**{f.name: pick(getattr(self, f.name))
                              for f in dataclasses.fields(self)})
+
+
+def _rebuild(like: tuple, items: list) -> tuple:
+    """A tuple of ``like``'s type (a NamedTuple or a plain tuple) holding
+    ``items``."""
+    return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
 
 
 def split_lanes(st: BatchState, size: int) -> list:
@@ -386,10 +399,10 @@ def split_lanes(st: BatchState, size: int) -> list:
 
 def _join(vs):
     v = vs[0]
-    if isinstance(v, (KKTVec, Scaling)):
-        return type(v)(*(torch.cat(a) for a in zip(*vs)))
-    if isinstance(v, Filter):
-        return Filter(*(np.concatenate(a) for a in zip(*vs)))
+    if v is None:
+        return None
+    if isinstance(v, tuple):
+        return _rebuild(v, [_join(list(a)) for a in zip(*vs)])
     if isinstance(v, RRState):
         return RRState(**{f.name: _join([getattr(s, f.name) for s in vs])
                           for f in dataclasses.fields(v)})
@@ -404,9 +417,12 @@ def stack_lanes(parts: list) -> BatchState:
                          for f in dataclasses.fields(BatchState)})
 
 
-def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, nnzh: int,
+def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, hess,
                       filter_capacity: int, theta: torch.Tensor,
-                      device) -> BatchState:
+                      device, n: int = 0, qn_mem: int = 0) -> BatchState:
+    """A zero batch of ``lanes`` lanes; ``hess`` is the Hessian's batched
+    template (the problem's ``hess_template(lanes)``), ``n`` the number of
+    variables and ``qn_mem`` the quasi-Newton memory's columns."""
     def z(k):
         return torch.zeros((lanes, k), dtype=torch.float64, device=device)
 
@@ -414,7 +430,7 @@ def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, nnzh: int,
     fields.update({k: np.zeros(lanes, dtype=np.int64) for k in _INTS})
     return BatchState(
         x=z(nw), y=z(m), zl=z(nw), zu=z(nw), xl=z(nw) - torch.inf,
-        xu=z(nw) + torch.inf, f=z(nw), c=z(m), jac=z(nnzj), hess=z(nnzh),
+        xu=z(nw) + torch.inf, f=z(nw), c=z(m), jac=z(nnzj), hess=hess,
         jacl=z(nw), x_trial=z(nw), c_trial=z(m),
         d=kkt_zeros(nw, m, device, lanes), p=kkt_zeros(nw, m, device, lanes),
         filter=filter_stack([filter_init(filter_capacity)] * lanes),
@@ -423,15 +439,21 @@ def batch_state_zeros(lanes: int, nw: int, m: int, nnzj: int, nnzh: int,
                                 device=device)),
         theta=theta, soft_F=np.zeros(lanes), backup_x=z(nw), backup_y=z(m),
         backup_c=z(m), RR=rr_zeros(nw, m, filter_capacity, device, lanes),
-        rr_init_needed=np.zeros(lanes, dtype=bool), **fields)
+        rr_init_needed=np.zeros(lanes, dtype=bool),
+        qn=qn_zeros(n, qn_mem, device, lanes),
+        barrier_free_mode=np.ones(lanes, dtype=bool), **fields)
 
 
 def batch_state_from_arrays(d: dict, device) -> BatchState:
     """:func:`state_from_arrays` with a leading lane axis on every leaf:
     the same keys, each holding the stacked ``(B, ...)`` leaves of B JAX
     states (a batched JAX ``State`` converted to numpy), plus ``"theta"``,
-    the ``(B,)`` parameters.  The restoration leaves are read where
-    present and zero otherwise, as :func:`state_from_arrays` reads them."""
+    the ``(B,)`` parameters.  The restoration leaves, the low-rank Hessian
+    (``"hess.diag"``, ``"hess.U"``, ``"hess.V"``), the quasi-Newton memory
+    (``"qn.<field>"``) and ``"barrier_free_mode"`` are read where present,
+    as :func:`state_from_arrays` reads them; ``ctx`` stays None (the
+    caller sets the port's own context where an adaptive barrier needs
+    one)."""
 
     def vec(a):
         return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
@@ -443,7 +465,9 @@ def batch_state_from_arrays(d: dict, device) -> BatchState:
             np.asarray(d[f"{prefix}.count"], dtype=np.int64).copy(),
         )
 
-    fields = {k: vec(d[k]) for k in _VECTORS}
+    fields = {k: vec(d[k]) for k in _VECTORS if k != "hess"}
+    fields["hess"] = (vec(d["hess"]) if "hess" in d else LowRankHessian(
+        *(vec(d[f"hess.{k}"]) for k in LowRankHessian._fields)))
     fields.update({k: np.asarray(d[k], dtype=np.float64).copy()
                    for k in _FLOATS})
     fields.update({k: np.asarray(d[k], dtype=np.int64).copy() for k in _INTS})
@@ -473,4 +497,14 @@ def batch_state_from_arrays(d: dict, device) -> BatchState:
             else:
                 val = vec(d[f"RR.{f.name}"])
             setattr(st.RR, f.name, val)
+    st.barrier_free_mode = np.asarray(d.get("barrier_free_mode",
+                                            np.ones(B)), dtype=bool).copy()
+    if "qn.Sk" in d:
+        st.qn = QNState(
+            *(vec(d[f"qn.{k}"]) for k in QNState._fields[:5]),
+            mem=np.asarray(d["qn.mem"], dtype=np.int64).copy(),
+            skipped=np.asarray(d["qn.skipped"], dtype=np.int64).copy(),
+            instantiated=np.asarray(d["qn.instantiated"], dtype=bool).copy())
+    else:
+        st.qn = qn_zeros(0, 0, device, B)
     return st

@@ -454,7 +454,7 @@ class Kernel:
             def attempt(del_w, del_c):
                 return self._attempt_ignore(st, p_rhs, rr, del_w, del_c)
         else:
-            g, p0 = self._free_test_data(st, rr)
+            g, p0 = self._free_test_data(st, st.RR.mu_R if rr else st.mu)
 
             def attempt(del_w, del_c):
                 return self._attempt_free(st, p_rhs, rr, del_w, del_c, g, p0)
@@ -508,17 +508,17 @@ class Kernel:
         self._count(st, iters)
         return ctx, d, solved, None
 
-    def _free_test_data(self, st: State, rr: bool):
+    def _free_test_data(self, st: State, mu):
         """The inertia-free test's gradient g_ifr (kernels.jl:242-248) and
-        the right-hand side (0, -c, 0, 0) of its normal step."""
-        p = self.prob
+        the right-hand side (0, -c, 0, 0) of its normal step; ``mu`` is μ
+        (μ_R in robust restoration): a host float, or a ``(B,)`` tensor in
+        a batch."""
         dl, du_ = self.slacks(st.x, st.xl, st.xu)
-        mu = st.RR.mu_R if rr else st.mu
+        mu = K.as_col(mu)
         g = (st.f - torch.where(self.lb, mu / dl, 0.0)
              + torch.where(self.ub, mu / du_, 0.0) + st.jacl)
-        p0 = KKTVec(xp=p.zeros(p.nw), y=-st.c, zl=p.zeros(p.nw),
-                    zu=p.zeros(p.nw))
-        return g, p0
+        zero = torch.zeros_like(st.x)
+        return g, KKTVec(xp=zero, y=-st.c, zl=zero, zu=zero)
 
     def _attempt_free(self, st, p_rhs, rr, del_w, del_c, g, p0):
         """Factor, solve the normal step d₀ and the full step d, and test

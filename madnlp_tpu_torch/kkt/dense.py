@@ -41,9 +41,14 @@ import numpy as np
 import torch
 
 from ..ops import dense_solvers as ds
-from ..ops.refine import solve_gmres, solve_refine, solve_refine_batched
+from ..ops.refine import (
+    solve_gmres,
+    solve_gmres_batched,
+    solve_refine,
+    solve_refine_batched,
+)
 from ..utils.options import LinearSolver, MadNLPOptions
-from .vec import KKTVec
+from .vec import KKTVec, lane_where
 
 _FACT_DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
@@ -136,7 +141,7 @@ class DenseKKT:
         (kernels.jl:61-63 scaling_factor)."""
         s = (torch.where(self.lb, torch.sqrt(dl), 1.0)
              * torch.where(self.ub, torch.sqrt(du_), 1.0))
-        return torch.cat([s, s.new_ones(size_dual)])
+        return torch.cat([s, s.new_ones(s.shape[:-1] + (size_dual,))], -1)
 
     def _backsolve(self, factor, rhs, active=None):
         # K x = b  ⟺  (DKD)(D⁻¹x) = D b
@@ -150,39 +155,56 @@ class DenseKKT:
     # -- compact L-BFGS low-rank correction (SMW) ---------------------------
 
     def _apply_smw(self, factor, x0):
+        """The SMW correction of a backsolve ``x0`` (one column or ``k``;
+        with a lane axis under a batched payload)."""
         if factor.smw is None:
             return x0
         E, T, S_lu = factor.smw
-        n = E.shape[0]
-        squeeze = x0.ndim == 1
-        xm = x0[:, None] if squeeze else x0
-        z = torch.linalg.lu_solve(*S_lu, E.T @ xm[:n])
+        n = E.shape[-2]
+        squeeze = x0.ndim == E.ndim - 1
+        xm = x0[..., None] if squeeze else x0
+        z = torch.linalg.lu_solve(*S_lu, E.transpose(-1, -2) @ xm[..., :n, :])
         xm = xm - T @ z
-        return xm[:, 0] if squeeze else xm
+        return xm[..., 0] if squeeze else xm
 
-    def _attach_smw(self, factor, lr):
+    def _attach_smw(self, factor, lr, active=None, prev=None):
         """The SMW payload of the low-rank part ``ΔW = V Vᵀ − U Uᵀ =
         E C Eᵀ`` at factorization time: one backsolve of 2p right-hand
         sides (on the banded path, one launch of the cluster solve with
-        k = 2p) and the LU factorization of the small matrix S."""
-        n, p_mem = lr.U.shape
-        E = torch.cat([lr.U, lr.V], 1)                   # (n, 2p)
-        Epad = E.new_zeros((self.sys_size(), 2 * p_mem))
-        Epad[:n] = E
-        T = self._backsolve(factor, Epad)                # K₀⁻¹ Ẽ
+        k = 2p) and the LU factorization of the small matrix S.  For a
+        batch, the lanes in ``active`` (numpy bool (B,)) get theirs (one
+        launch of K4 with k = 2p over them, then one (2p, 2p) LU per
+        lane); the others keep ``prev``'s payload, or the zero one."""
+        n, p_mem = lr.U.shape[-2:]
+        E = torch.cat([lr.U, lr.V], -1)                  # (…, n, 2p)
+        Epad = E.new_zeros(E.shape[:-2] + (self.sys_size(), 2 * p_mem))
+        Epad[..., :n, :] = E
+        T = self._backsolve(factor, Epad, active)        # K₀⁻¹ Ẽ
         C = torch.diag(torch.cat([-E.new_ones(p_mem), E.new_ones(p_mem)]))
-        S = C + E.T @ T[:n]
-        return factor._replace(smw=(E, T, tuple(torch.linalg.lu_factor(S))))
+        S = C + E.transpose(-1, -2) @ T[..., :n, :]
+        if active is None:
+            return factor._replace(smw=(E, T,
+                                        tuple(torch.linalg.lu_factor(S))))
+        on = torch.as_tensor(np.asarray(active, dtype=bool),
+                             device=self.device)
+        S = torch.where(on[:, None, None], S, C)         # lanes not factored
+        new = (E, T, tuple(torch.linalg.lu_factor(S)))
+        old = (prev.smw if prev is not None and prev.smw is not None
+               else self._zero_smw(n, p_mem, lanes=len(active)))
+        return factor._replace(smw=lane_where(on, new, old))
 
-    def _zero_smw(self, n: int, p_mem: int):
+    def _zero_smw(self, n: int, p_mem: int, lanes: int = None):
         """The zero SMW payload (no correction): the template of the
-        persisted context."""
-        z = torch.zeros((n, 2 * p_mem), dtype=torch.float64,
+        persisted context; with ``lanes``, one per lane."""
+        lead = () if lanes is None else (lanes,)
+        z = torch.zeros(lead + (n, 2 * p_mem), dtype=torch.float64,
                         device=self.device)
-        return (z, z.new_zeros((self.sys_size(), 2 * p_mem)),
-                (torch.eye(2 * p_mem, dtype=torch.float64, device=self.device),
-                 torch.arange(1, 2 * p_mem + 1, dtype=torch.int32,
-                              device=self.device)))
+        eye = torch.eye(2 * p_mem, dtype=torch.float64, device=self.device)
+        piv = torch.arange(1, 2 * p_mem + 1, dtype=torch.int32,
+                           device=self.device)
+        return (z, z.new_zeros(lead + (self.sys_size(), 2 * p_mem)),
+                (eye.expand(lead + eye.shape).clone(),
+                 piv.expand(lead + piv.shape).clone()))
 
     def zero_context(self) -> KKTContext:
         """An all-zero context with the factor's shapes: the persisted
@@ -275,7 +297,14 @@ class DenseKKT:
         if self.opts.iterator != "richardson":
             # GMRES keeps the static tolerance, as in the JAX package
             if active is not None:
-                raise _later("iterator='gmres' in solve_batch")
+                return solve_gmres_batched(
+                    lambda w, run: self.solve(ctx, w, run),
+                    lambda x: self.mul(ctx, x),
+                    b, active,
+                    max_iter=ro.max_iter,
+                    tol=tol,
+                    acceptable_tol=self.opts.richardson_acceptable_tol,
+                )
             return solve_gmres(
                 lambda w: self.solve(ctx, w),
                 lambda x: self.mul(ctx, x),

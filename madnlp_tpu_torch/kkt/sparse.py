@@ -60,6 +60,16 @@ def _later(what: str):
     return NotImplementedError(f"{what} comes in a later slice of the port")
 
 
+def _lowrank_corr(lr: LowRankHessian, v):
+    """``(V Vᵀ − U Uᵀ) v`` of a compact L-BFGS operator (one vector, or a
+    lane axis on both)."""
+    if v.ndim == 1:
+        return -lr.U @ (lr.U.T @ v) + lr.V @ (lr.V.T @ v)
+    v = v[..., None]
+    Ut, Vt = lr.U.transpose(-1, -2), lr.V.transpose(-1, -2)
+    return (-lr.U @ (Ut @ v) + lr.V @ (Vt @ v))[..., 0]
+
+
 class SparseKKT(DenseKKT):
     """Reduced augmented KKT with banded assembly from sparse callbacks."""
 
@@ -212,17 +222,18 @@ class SparseKKT(DenseKKT):
     def _backsolve(self, factor, rhs, active=None):
         if not self.banded:
             return super()._backsolve(factor, rhs, active)
-        # K x = b  ⟺  (DKD)(D⁻¹x) = D b
-        d = factor.d if rhs.ndim == 1 or active is not None \
-            else factor.d[:, None]
+        # K x = b  ⟺  (DKD)(D⁻¹x) = D b; rhs (N,) or (N, k), with a lane
+        # axis for a batch
+        d = factor.d[..., None] if rhs.ndim > factor.d.ndim else factor.d
         scaled = (d * rhs).to(self.fact_dtype)
         if active is None:
             xp = banded_kernels.solve(self.bstruct, factor.inner,
                                       scaled[self._bperm])
             return self._apply_smw(factor, d * xp[self._biperm].to(rhs.dtype))
         xp = banded_kernels.solve_batched(self.bstruct, factor.inner,
-                                          scaled[..., self._bperm], active)
-        return factor.d * xp[..., self._biperm].to(rhs.dtype)
+                                          scaled[:, self._bperm], active)
+        return self._apply_smw(factor,
+                               d * xp[:, self._biperm].to(rhs.dtype))
 
     def inertia(self, ctx):
         if not self.banded:
@@ -259,7 +270,12 @@ class SparseKKT(DenseKKT):
         the compact L-BFGS operator B = diag − UUᵀ + VVᵀ."""
         if isinstance(hess_vals, LowRankHessian):
             lr = hess_vals
-            return lr.diag * v - lr.U @ (lr.U.T @ v) + lr.V @ (lr.V.T @ v)
+            if v.ndim == 1:
+                return (lr.diag * v - lr.U @ (lr.U.T @ v)
+                        + lr.V @ (lr.V.T @ v))
+            vc = v[..., None]
+            return (lr.diag * v - (lr.U @ (lr.U.transpose(-1, -2) @ vc))[..., 0]
+                    + (lr.V @ (lr.V.transpose(-1, -2) @ vc))[..., 0])
         out = segment_sum(hess_vals * v[..., self.hc], self._hr_table)
         off = torch.where(self.h_offdiag, hess_vals, 0.0)
         return out + segment_sum(off * v[..., self.hr], self._hc_table)
@@ -279,7 +295,7 @@ class SparseKKT(DenseKKT):
         lowrank = isinstance(hess, LowRankHessian)
         hv = hess.diag if lowrank else hess
         d_k25 = (self._k25_scaling(dl, du_, p.m)
-                 if self.opts.kkt_scaling == "k25" and active is None else None)
+                 if self.opts.kkt_scaling == "k25" else None)
         if not self.banded:
             if active is not None:
                 raise _later("batched dense KKT storage")
@@ -290,7 +306,9 @@ class SparseKKT(DenseKKT):
             factor = self._banded_factorize_coo(
                 vals, active, None if prev is None else prev.factor, d_k25)
         if lowrank:
-            factor = self._attach_smw(factor, hess)
+            factor = self._attach_smw(
+                factor, hess, active,
+                None if prev is None else prev.factor)
         if not self.banded:
             return KKTContext(
                 hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag,
@@ -325,10 +343,8 @@ class SparseKKT(DenseKKT):
         )
         wx = kv[..., : p.nw] - sigma * v.xp
         if isinstance(ctx.hess, LowRankHessian):
-            lr = ctx.hess
-            vx = v.xp[: p.n]
-            corr = -lr.U @ (lr.U.T @ vx) + lr.V @ (lr.V.T @ vx)
-            wx = torch.cat([wx[: p.n] + corr, wx[p.n:]])
+            corr = _lowrank_corr(ctx.hess, v.xp[..., : p.n])
+            wx = torch.cat([wx[..., : p.n] + corr, wx[..., p.n:]], -1)
         wx = wx - torch.where(lb, v.zl, 0.0) + torch.where(ub, v.zu, 0.0)
         wy = kv[..., p.nw:] if p.m > 0 else v.y
         wzl = torch.where(lb, ctx.zl * v.xp + ctx.dl * v.zl, 0.0)
@@ -355,5 +371,6 @@ class SparseKKT(DenseKKT):
         """wx = (W + Σ) t for the inertia-free curvature test
         (factorization.jl:326-331)."""
         p = self.prob
-        ht = self.hess_mul(ctx.hess, t[: p.n])
-        return torch.cat([ht, ht.new_zeros(p.nw - p.n)]) + t * ctx.pr_diag
+        ht = self.hess_mul(ctx.hess, t[..., : p.n])
+        return (torch.cat([ht, ht.new_zeros(ht.shape[:-1] + (p.nw - p.n,))],
+                          -1) + t * ctx.pr_diag)

@@ -38,9 +38,16 @@ def kkt_zeros(nw: int, m: int, device=None, lanes: int = None) -> KKTVec:
     return KKTVec(xp=z(nw), y=z(m), zl=z(nw), zu=z(nw))
 
 
-def kkt_where(mask: torch.Tensor, a: KKTVec, b: KKTVec) -> KKTVec:
-    """Lane by lane: ``a`` where ``mask`` (B,) holds, else ``b``."""
-    return KKTVec(*(torch.where(mask[:, None], x, y) for x, y in zip(a, b)))
+def lane_where(mask: torch.Tensor, a, b):
+    """Lane by lane: ``a`` where the bool ``mask`` (B,) holds, else ``b``;
+    over tensors with a leading lane axis or trees of tuples of them (a
+    KKTVec, a KKT context, an SMW payload), None staying None."""
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        items = [lane_where(mask, x, y) for x, y in zip(a, b)]
+        return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
+    return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
 
 
 def norm_inf(v: KKTVec) -> torch.Tensor:

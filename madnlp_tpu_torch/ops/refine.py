@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from ..kkt.vec import KKTVec, kkt_where, norm_inf
+from ..kkt.vec import KKTVec, lane_where, norm_inf
 
 
 def _ratio(norm_w, norm_x, norm_b):
@@ -91,9 +91,9 @@ def solve_refine_batched(solve_fn, mul_fn, b: KKTVec, active, max_iter: int,
             break
         on = torch.as_tensor(run, device=b.xp.device)
         dx = solve_fn(w, run)
-        x = kkt_where(on, x.axpy(1.0, dx), x)
+        x = lane_where(on, x.axpy(1.0, dx), x)
         kx = mul_fn(x)
-        w = kkt_where(on, KKTVec(*(bb - kk for bb, kk in zip(b, kx))), w)
+        w = lane_where(on, KKTVec(*(bb - kk for bb, kk in zip(b, kx))), w)
         nw_, nx_ = torch.stack([norm_inf(w), norm_inf(x)]).cpu().numpy()
         for i in np.flatnonzero(run):
             prev[i], ratio[i] = ratio[i], _ratio(nw_[i], nx_[i], norm_b[i])
@@ -187,3 +187,99 @@ def solve_gmres(solve_fn, mul_fn, b: KKTVec, max_iter: int, tol: float,
     converged = (_ratio(norm_r, norm_x, norm_b) < acceptable_tol
                  and norm_r <= 0.999 * norm_b) or norm_b == 0.0
     return xk, converged, max_iter
+
+
+def _safe_normalize_lanes(x, thresh):
+    """:func:`_safe_normalize` of each lane of ``x (B, N)``; ``thresh`` a
+    ``(B,)`` array.  Returns the unit lanes and the ``(B,)`` host norms."""
+    norm = torch.linalg.vector_norm(x, dim=-1)
+    host = norm.cpu().numpy()
+    big = host > thresh
+    on = torch.as_tensor(big, device=x.device)[:, None]
+    unit = torch.where(on, x / norm[:, None], 0.0)
+    return unit, np.where(big, host, 0.0)
+
+
+def _gmres_restart_lanes(A, M, b, x0, unit_residual, residual_norm, restart,
+                         lanes):
+    """:func:`_gmres_restart` of the lanes in ``lanes`` (numpy bool (B,)),
+    each with its own breakdown; ``M(v, run)`` preconditions the lanes of
+    ``run``.  Returns the new ``x``, unit residual and residual norms of
+    every lane (the others' as they were)."""
+    B, N = unit_residual.shape
+    dev = unit_residual.device
+    V = unit_residual.new_zeros((B, N, restart + 1))
+    V[:, :, 0] = unit_residual
+    H = torch.eye(restart, restart + 1, dtype=V.dtype,
+                  device=dev).expand(B, -1, -1).clone()
+    go = lanes.copy()
+    k = 0
+    while k < restart and go.any():
+        on = torch.as_tensor(go, device=dev)
+        v = M(A(V[:, :, k]), go)
+        _, v_norm_0 = _safe_normalize_lanes(v, _EPS)
+        h = (V.transpose(-1, -2) @ v[..., None])[..., 0]
+        v = v - (V @ h[..., None])[..., 0]
+        unit_v, v_norm_1 = _safe_normalize_lanes(v, _EPS * v_norm_0)
+        V[:, :, k + 1] = torch.where(on[:, None], unit_v, V[:, :, k + 1])
+        h[:, k + 1] = torch.as_tensor(v_norm_1, device=dev)
+        H[:, k, :] = torch.where(on[:, None], h, H[:, k, :])
+        go &= v_norm_1 != 0.0
+        k += 1
+    beta = H.new_zeros((B, restart + 1))
+    beta[:, 0] = torch.as_tensor(residual_norm, device=dev)
+    L, info = torch.linalg.cholesky_ex(H @ H.transpose(-1, -2))
+    # as XLA's failed Cholesky
+    L = torch.where((info != 0)[:, None, None], math.nan, L)
+    y = torch.cholesky_solve((H @ beta[..., None]), L)[..., 0]
+    x = x0 + (V[:, :, :-1] @ y[..., None])[..., 0]
+    unit, norm = _safe_normalize_lanes(M(b - A(x), lanes), _EPS)
+    on = torch.as_tensor(lanes, device=dev)[:, None]
+    return (torch.where(on, x, x0), torch.where(on, unit, unit_residual),
+            np.where(lanes, norm, residual_norm))
+
+
+def solve_gmres_batched(solve_fn, mul_fn, b: KKTVec, active, max_iter: int,
+                        tol: float, acceptable_tol: float):
+    """:func:`solve_gmres` lane by lane over ``b`` (B, ·) for the lanes
+    that ``active`` (numpy bool (B,)) selects, each with its own restarts
+    and breakdowns (the JAX package's ``vmap`` of its GMRES);
+    ``solve_fn(w, run)`` preconditions the lanes of ``run`` (one batched
+    backsolve per Arnoldi step).  Returns ``(x, converged (B,), iters
+    (B,))``: ``max_iter`` backsolves counted per active lane, as the
+    single solve counts them."""
+    active = np.asarray(active, dtype=bool)
+    sizes = [a.shape[-1] for a in b]
+
+    def unflat(v):
+        return KKTVec(*torch.split(v, sizes, dim=-1))
+
+    def A(v):
+        return torch.cat(list(mul_fn(unflat(v))), -1)
+
+    def M(v, run):
+        return torch.cat(list(solve_fn(unflat(v), run)), -1)
+
+    bf = torch.cat(list(b), -1)
+    restart = min(min(20, max(1, max_iter)), bf.shape[-1])
+    atol = np.maximum(
+        tol * torch.linalg.vector_norm(bf, dim=-1).cpu().numpy(), 0.0)
+    x = torch.zeros_like(bf)
+    unit_residual, residual_norm = _safe_normalize_lanes(
+        M(bf - A(x), active), _EPS)
+    k = np.zeros(len(active), dtype=np.int64)
+    run = active & (k < max_iter) & (residual_norm > atol)
+    while run.any():
+        x, unit_residual, residual_norm = _gmres_restart_lanes(
+            A, M, bf, x, unit_residual, residual_norm, restart, run)
+        k[run] += 1
+        run &= (k < max_iter) & (residual_norm > atol)
+    xk = unflat(x)
+    r = KKTVec(*(bb - kk for bb, kk in zip(b, mul_fn(xk))))
+    norm_r, norm_x, norm_b = torch.stack(
+        [norm_inf(r), norm_inf(xk), norm_inf(b)]).cpu().numpy()
+    converged = np.array([
+        (_ratio(nr, nx, nb) < acceptable_tol and nr <= 0.999 * nb)
+        or nb == 0.0 for nr, nx, nb in zip(norm_r, norm_x, norm_b)])
+    return (xk, converged & active,
+            np.where(active, max_iter, 0).astype(np.int64))

@@ -848,3 +848,102 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     assert again.status == whole.status
     assert again.counters == whole.counters
     assert np.array_equal(again.solution, whole.solution)
+
+
+@pytest.mark.parametrize("opts,nb,scales", [
+    ({"barrier": T.BarrierUpdate.QUALITY_FUNCTION}, 118, (0.95, 1.0, 1.05)),
+    ({"hessian_approximation": T.HessianApproximation.COMPACT_LBFGS}, 14,
+     tuple(np.linspace(0.92, 1.08, 16))),
+], ids=["quality_function", "compact_lbfgs"])
+def test_batch_step_options_on_the_card(opts, nb, scales):
+    """``solve_batch`` of the parametric ACOPF on the card under a step
+    option: each lane is the port's single solve of its scale on the card
+    (status, iterations and factorizations exactly, the objective within
+    1e-8 relative, backsolves within one sweep); K3/K4 launched, under
+    compact L-BFGS K4 once per batched factorization on the 12 columns of
+    the SMW payload; K1/K2, K5-K7 and every witness never.  The quality
+    function runs the nb=118 model at three scales; compact L-BFGS the
+    nb=14 model at the 16 scales of ``chip_smoke.py``'s batch, where on
+    the card every lane equals its single solve (at nb=118 and nb=30 a
+    quasi-Newton lane's exit moves with rounding: ROADMAP C4)."""
+    _need_cuda()
+
+    def solver():
+        return T.MadNLPSolver(
+            opf.build_sparse(nb=nb, seed=0, parametric=True), device="cuda",
+            linear_solver=T.LinearSolver.BANDED,
+            richardson=T.RichardsonOptions(mu_scaled=True),
+            print_level=T.PrintLevel.ERROR, **opts)
+
+    one = solver()
+    single = []
+    for p in scales:
+        one.state = None
+        single.append(one.solve(params=float(p)))
+    widths = {}
+    solve_batched = bk.solve_batched
+
+    def counting(struct, f, rhs, active):
+        k = 1 if rhs.ndim == 2 else rhs.shape[2]
+        widths[k] = widths.get(k, 0) + 1
+        return solve_batched(struct, f, rhs, active)
+
+    s = solver()
+    bk.reset_counts()
+    bf.reset_counts()
+    dk.reset_counts()
+    bk.solve_batched = counting
+    try:
+        summ = T.batch_summary(s.prob, s.solve_batch(scales))
+    finally:
+        bk.solve_batched = solve_batched
+    counts = {**bk.counts(), **bf.counts(), **bf.witness_counts(),
+              **dk.counts()}
+    c = summ["counters"]
+    for i, ref in enumerate(single):
+        assert ref.status == T.Status.SOLVE_SUCCEEDED
+        assert summ["status"][i] == int(ref.status)
+        assert summ["iter"][i] == ref.iter
+        assert c["factorization_cnt"][i] == ref.counters["factorization_cnt"]
+        assert abs(c["backsolve_cnt"][i] - ref.counters["backsolve_cnt"]) <= 1
+        assert abs(summ["objective"][i] - ref.objective) \
+            <= 1e-8 * abs(ref.objective)
+    k3 = counts.pop("banded_factorize_batched_cuda")
+    assert k3 > 0 and counts.pop("banded_solve_batched_cuda") > 0
+    assert not any(counts.values()), counts
+    if "hessian_approximation" in opts:
+        assert widths.get(12, 0) == k3
+        assert (c["hess_cnt"] == 0).all()
+    else:
+        assert 12 not in widths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_cluster_solve_of_twelve_columns(dtype):
+    """K4 at k = 12 over 16 lanes of the nb600 batch's geometry (b = 256,
+    bw = 2, nb = 11), lane 3 inactive: each column bit for bit the
+    one-column K4 launch, the inactive lane's right-hand side back bit for
+    bit, the active lanes within RTOL of the plain solve."""
+    _need_cuda()
+    st, bands = _lanes(11, 256, 2, dtype, zero_lane=None, lanes=16)
+    f = bk.factorize_batched(st, bands.clone(),
+                             bands.new_zeros((16, st.nbp, st.b, st.b)),
+                             bands.new_ones((16, st.nb * st.b)),
+                             np.ones(16, bool))
+    active = np.ones(16, dtype=bool)
+    active[3] = False
+    rng = np.random.default_rng(16)
+    rhs = torch.as_tensor(rng.standard_normal((16, st.N, 12)), dtype=dtype,
+                          device="cuda")
+    wide = plain.pad_rhs_batched(st, rhs)
+    x = wide.clone()
+    bk.banded_solve_batched_cuda(f.band, f.invL, f.d, x, active)
+    for j in range(12):
+        xj = wide[:, :, j:j + 1].clone()
+        bk.banded_solve_batched_cuda(f.band, f.invL, f.d, xj, active)
+        torch.cuda.synchronize()
+        assert _same_bits(x[:, :, j:j + 1], xj), j
+    assert _same_bits(x[3], wide[3])
+    ref = plain.banded_solve_batched(st, f, rhs, active)
+    for i in np.flatnonzero(active):
+        assert _rel(x[i, : st.N], ref[i]) < RTOL[dtype]

@@ -86,3 +86,15 @@ def test_no_plan_raises(dtype):
         bk.solve_plan(1, 256, 2, 130, dtype, H100)
     with pytest.raises(ValueError):
         bk.solve_plan(16, 256, 7, 32, dtype, H100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_batched_smw_solve_has_a_plan(dtype):
+    """K4 on the 2p = 12 columns of compact L-BFGS's SMW payload over the
+    nb600 batch's 16 lanes (b = 256, bw = 2): one wave of clusters of 4,
+    the whole block in each stage's rows where they fit."""
+    item = torch.empty((), dtype=dtype).element_size()
+    plan = bk.solve_plan(16, 256, 2, 12, dtype, H100)
+    assert plan.clusters == 4
+    assert plan.smem == _smem(plan, 256, 2, 12, item) <= bk.SMEM_LIMIT
+    assert plan.stages >= 2 and plan.rows >= 16

@@ -188,8 +188,8 @@ def test_entry_points_need_cuda_unless_told():
 ])
 def test_later_slices_raise(opts):
     """The KKT systems and solvers of later slices raise in the single
-    solve; the step options, which the single solve runs since slice A2,
-    raise in ``solve_batch`` (their batched form is slice A2b)."""
+    solve; the step options run in the single solve (slice A2) and in
+    ``solve_batch`` (slice A2b), where only ``sharding=`` still raises."""
     a2 = not ("linear_solver" in opts or "kkt_system" in opts)
     opts = {"linear_solver": T.LinearSolver.BANDED, **opts}
     solver = T.MadNLPSolver(ths15.build_sparse(), device="cpu",
@@ -197,7 +197,7 @@ def test_later_slices_raise(opts):
         if a2 else None
     with pytest.raises(NotImplementedError, match="later slice"):
         if a2:
-            solver.solve_batch([])
+            solver.solve_batch([1.0, 1.1], sharding=object())
         else:
             T.MadNLPSolver(ths15.build_sparse(), device="cpu", **opts).solve()
     if a2:
@@ -210,29 +210,6 @@ def test_full_memory_bfgs_needs_dense_storage():
     with pytest.raises(NotImplementedError, match="dense Hessian storage"):
         T.MadNLPSolver(tqp.build(n=60, m=15), device="cpu",
                        hessian_approximation=T.HessianApproximation.BFGS)
-
-
-BATCH_REFUSED = [
-    {"barrier": T.BarrierUpdate.QUALITY_FUNCTION},
-    {"barrier": T.BarrierUpdate.LOQO},
-    {"hessian_approximation": T.HessianApproximation.COMPACT_LBFGS},
-    {"inertia_correction_method": T.InertiaCorrection.FREE},
-    {"inertia_correction_method": T.InertiaCorrection.IGNORE},
-    {"iterator": "gmres"},
-    {"kkt_scaling": "k25"},
-    {"kkt_system": "scaled_sparse"},
-]
-
-
-def test_solve_batch_refuses_the_step_options():
-    """Each step option, which the batch does not implement yet (a later
-    slice), raises in ``solve_batch`` instead of running wrongly."""
-    model = topf.build_sparse(nb=14, seed=0, parametric=True)
-    for opts in BATCH_REFUSED:
-        solver = T.MadNLPSolver(model, device="cpu",
-                                linear_solver=T.LinearSolver.BANDED, **opts)
-        with pytest.raises(NotImplementedError, match="in solve_batch"):
-            solver.solve_batch([1.0, 1.1])
 
 
 def test_banded_backend_is_the_device():

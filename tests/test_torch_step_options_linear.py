@@ -1,21 +1,20 @@
 """The linear-solve options against the JAX package (helpers in
-tests/test_torch_step_options.py): ``inertia_correction_method`` FREE and
-IGNORE on the banded ``opf.build_sparse(nb=14, seed=0)``, AUTO with
-``LU`` and ``QR`` on ``hs15.build()`` (neither solver has inertia, so AUTO
-takes FREE), and ``ops/refine.py:solve_gmres`` on a fixed 40×40 saddle
+tests/test_torch_step_options.py): AUTO with ``LU`` and ``QR`` on
+``hs15.build()`` (neither solver has inertia, so AUTO takes FREE), and
+``ops/refine.py:solve_gmres`` on a fixed 40×40 saddle
 system (a seeded SPD block of 20, a constraint block of 10, the
 bound-dual blocks of 5 an identity), preconditioned by the inverse of a
 perturbed copy: the solution within 1e-10 relative, the same success
 flag and count, at 2 and 10 restarts.
 
-Two counts are held to one-ulp spreads of both packages
-(``tools/spread.py inertia --pkg both --option free|ignore`` and
-``tools/spread.py qr --pkg both``: seven runs each, as they are and
-moved by at most one ulp). The nb=14 banded solves end with one
-Richardson sweep more or less than the JAX package's at their last
-factorization (μ = 2.5e-9), as the default inertia-based solve of that
-model does: the refinement's ratio sits on its tolerance there (FREE
-22-23 backsolves, IGNORE 11-12). hs15 with QR: the two packages' LAPACK
+``inertia_correction_method`` FREE and IGNORE on the banded
+``opf.build_sparse(nb=14, seed=0)`` are in
+tests/test_torch_batch_options_inertia.py, beside the batch under the
+same options, whose JAX reference they share.
+
+One count is held to the one-ulp spread of both packages
+(``tools/spread.py qr --pkg both``: seven runs, as they are and moved by
+at most one ulp).  hs15 with QR: the two packages' LAPACK
 QR factors differ in the last bits, and the refinement takes 57-60
 sweeps in both when every factorized matrix is moved by one ulp (57 in
 the JAX package, 58 in the port as they are). Iterations and
@@ -29,29 +28,17 @@ import torch
 
 from madnlp_tpu.kkt.vec import KKTVec as JVec
 from madnlp_tpu.models.instances import hs15 as jhs15
-from madnlp_tpu.models.instances import opf as jopf
 from madnlp_tpu.ops.refine import solve_gmres as jgmres
 
 import madnlp_tpu_torch as T
 from madnlp_tpu_torch.kkt.vec import KKTVec as TVec
 from madnlp_tpu_torch.models.instances import hs15 as ths15
-from madnlp_tpu_torch.models.instances import opf as topf
 from madnlp_tpu_torch.ops.refine import solve_gmres as tgmres
 
 from test_torch_step_options import assert_same, options, solve_both
 
-BACKSOLVE_SPREAD = {"FREE": (22, 23), "IGNORE": (11, 12), "QR": (57, 60)}
+BACKSOLVE_SPREAD = {"QR": (57, 60)}
 GMRES_RTOL = 1e-10
-
-
-@pytest.mark.parametrize("method", ["FREE", "IGNORE"])
-def test_inertia_strategy_on_the_banded_path_matches_jax(method):
-    opts = {"linear_solver": "LinearSolver.BANDED",
-            "inertia_correction_method": f"InertiaCorrection.{method}"}
-    j, t = solve_both(lambda: jopf.build_sparse(nb=14, seed=0),
-                      lambda: topf.build_sparse(nb=14, seed=0), opts)
-    assert t.status == T.Status.SOLVE_SUCCEEDED
-    assert_same(t, j, BACKSOLVE_SPREAD[method])
 
 
 @pytest.mark.parametrize("solver", ["LU", "QR"])

@@ -44,6 +44,20 @@ through the Pallas kernels in interpret mode, ``--backend``
 port on ``--device`` (it imports no JAX, so it runs on the card);
 ``both`` the two side by side on the CPU.
 
+``lanes``: the cold single solves of the parametric flagship
+(``opf.build_sparse(nb=NB, seed=0, parametric=True)``, the banded
+options) at the load scales ``LANE_SCALES[i]`` for each ``i`` of
+``--indices`` (the 16 lanes of ``chip_smoke.py``'s batch), under
+``--option``, one solver for every scale (``state = None`` before each
+solve: one compile of the JAX package's steps), one JSON line each; the
+pins of ``chip_smoke.py``'s ``batch_step_options`` phases.  ``--pkg
+batch``: the port's ``solve_batch`` of all 16 scales, the lanes of
+``--indices`` reported.  Seeds ``--first`` .. ``--seeds`` move x0 by at
+most one ulp (seed 0 as it is), then each lane's spread is printed.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/spread.py lanes --pkg jax \
+        --option qf --indices 0,5,10,15
+
 ``lockstep`` (not a spread): the JAX package and the port solve the
 flagship under ``--option`` on the CPU from the same point, one IPM step
 at a time.  After every step it prints the free-running distance of the
@@ -87,6 +101,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 EPS = np.finfo(np.float64).eps
 KEYS = ("iter", "factorization_cnt", "backsolve_cnt")
+# chip_smoke.py's BATCH_SCALES: the load scales of its 16-lane batch
+LANE_SCALES = np.linspace(0.92, 1.08, 16)
 
 
 def ulp(a, seed):
@@ -410,6 +426,67 @@ def _rel(a, b):
     return float(np.max(diff, initial=0.0) / max(scale, 1e-300))
 
 
+def _lane_rows(P, a, seed, indices):
+    """One row per lane of ``indices`` (see ``lanes``) at ``seed``."""
+    pkg = P.pkg
+    model = P.opf.build_sparse(nb=a.nb or 600, seed=0, parametric=True)
+    if seed:
+        model.x0 = ulp(model.x0, seed)
+    solver = pkg.MadNLPSolver(model, **_options(P, a.option, a, banded=True))
+    if a.pkg == "batch":
+        t = time.time()
+        summ = pkg.batch_summary(solver.prob, solver.solve_batch(LANE_SCALES))
+        _sync(a)
+        wall = time.time() - t
+        c = summ["counters"]
+        results = {i: (pkg.Status(int(summ["status"][i])).name,
+                       int(summ["iter"][i]), int(c["factorization_cnt"][i]),
+                       int(c["backsolve_cnt"][i]),
+                       float(summ["objective"][i]), wall) for i in indices}
+    else:
+        results = {}
+        for i in indices:
+            solver.state = None
+            t = time.time()
+            if P.name == "jax":
+                import jax.numpy as jnp
+                stats = solver.solve(params=jnp.asarray(LANE_SCALES[i]))
+            else:
+                stats = solver.solve(params=float(LANE_SCALES[i]))
+                _sync(a)
+            c = stats.counters
+            results[i] = (stats.status.name, stats.iter,
+                          c["factorization_cnt"], c["backsolve_cnt"],
+                          float(stats.objective), time.time() - t)
+    return [{"case": "lanes", "pkg": a.pkg, "option": a.option,
+             "dtype": a.dtype, "nb": a.nb or 600, "seed": seed, "lane": i,
+             "scale": float(LANE_SCALES[i]), "status": r[0], "iter": r[1],
+             "factorization_cnt": r[2], "backsolve_cnt": r[3],
+             "objective": r[4], "seconds": r[5]}
+            for i, r in results.items()]
+
+
+def lanes(a):
+    """The cold single solves (or the batch's lanes) of ``--indices`` at
+    each seed (see the module docstring); one JSON line each, then each
+    lane's spread over the seeds."""
+    P = _package("port" if a.pkg == "batch" else a.pkg)
+    indices = [int(v) for v in a.indices.split(",")]
+    rows = {}
+    for seed in range(a.first, a.seeds + 1):
+        for row in _lane_rows(P, a, seed, indices):
+            rows.setdefault(row["lane"], []).append(row)
+            print(json.dumps(row), flush=True)
+    if a.seeds > a.first:
+        for i, rs in rows.items():
+            print(json.dumps({
+                "case": "lanes", "pkg": a.pkg, "option": a.option,
+                "dtype": a.dtype, "lane": i, "runs": len(rs),
+                "statuses": sorted({r["status"] for r in rs}),
+                "spread": {k: (min(r[k] for r in rs), max(r[k] for r in rs))
+                           for k in KEYS}}), flush=True)
+
+
 def lockstep(a):
     """The JAX package and the port (or the JAX package's one-ulp twin,
     ``--seed``) step by step; one JSON line per step."""
@@ -475,7 +552,7 @@ def lockstep(a):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("case", choices=tuple(CASES) + ("lockstep",))
+    ap.add_argument("case", choices=tuple(CASES) + ("lanes", "lockstep"))
     ap.add_argument("--pkg", choices=("jax", "port", "both", "batch"),
                     default="port")
     ap.add_argument("--option", choices=sorted(STEP_OPTIONS),
@@ -489,8 +566,11 @@ def main():
     ap.add_argument("--theta", type=float, default=None,
                     help="restoration: the load scale (default 2.0)")
     ap.add_argument("--lanes", default="1.0,1.04")
+    ap.add_argument("--indices", default="0,5,10,15",
+                    help="lanes: indices into LANE_SCALES")
     ap.add_argument("--first", type=int, default=0)
-    ap.add_argument("--seeds", type=int, default=6)
+    ap.add_argument("--seeds", type=int, default=None,
+                    help="the last seed (default 6; lanes: 0)")
     ap.add_argument("--seed", type=int, default=0,
                     help="lockstep: the JAX package's one-ulp twin")
     ap.add_argument("--max-iter", type=int, default=None)
@@ -499,6 +579,11 @@ def main():
         a.theta = 2.0
     if a.case == "lockstep":
         return lockstep(a)
+    if a.seeds is None:
+        # the spreads run six twins; the lanes one run as they are
+        a.seeds = 0 if a.case == "lanes" else 6
+    if a.case == "lanes":
+        return lanes(a)
     return spread(a)
 
 

@@ -2,15 +2,19 @@
 """Where Tier-1's wall goes under ``pytest -n 6 --dist loadfile``.
 
 Three uses.  As a pytest plugin it writes, per xdist worker, the start and
-end time of every test to ``$TIER1_TRACE/<worker>.jsonl`` and the
-collection order to ``$TIER1_TRACE/collection.txt``:
+end time of every test, with the count of JAX backend compiles the worker
+has made so far (``jax.monitoring``'s backend-compile duration events), to
+``$TIER1_TRACE/<worker>.jsonl`` and the collection order to
+``$TIER1_TRACE/collection.txt``:
 
     TIER1_TRACE=out PYTHONPATH=tools python -m pytest tests/ ... \\
         -n 6 --dist loadfile -p tier1_schedule
 
 ``report out`` prints each worker's files in the order it ran them (start,
-end, summed test seconds, tests) and the worker-seconds of the port's
-files (``tests/test_torch_*.py``) and of the rest:
+end, summed test seconds, tests, JAX backend compiles, seconds of JAX's
+compile pipeline: tracing, lowering and backend compile) and the
+worker-seconds and compiles of the port's files (``tests/test_torch_*.py``)
+and of the rest:
 
     python3 tools/tier1_schedule.py report out
 
@@ -34,6 +38,19 @@ import time
 # -- the pytest plugin ---------------------------------------------------------
 
 _out = None
+_compiles = [0, 0.0]     # JAX backend compiles, seconds of JAX's compile
+BACKEND_COMPILE_EVENT = "/jax/core/compile/backend_compile_duration"
+# the compile pipeline's stages: tracing, lowering, backend compile
+COMPILE_EVENTS = ("/jax/core/compile/jaxpr_trace_duration",
+                  "/jax/core/compile/jaxpr_to_mlir_module_duration",
+                  BACKEND_COMPILE_EVENT)
+
+
+def _count_compile(event, duration, **kwargs):
+    if event == BACKEND_COMPILE_EVENT:
+        _compiles[0] += 1
+    if event in COMPILE_EVENTS:
+        _compiles[1] += duration
 
 
 def _trace_file():
@@ -43,17 +60,23 @@ def _trace_file():
         os.makedirs(folder, exist_ok=True)
         worker = os.environ.get("PYTEST_XDIST_WORKER", "main")
         _out = open(os.path.join(folder, f"{worker}.jsonl"), "a", buffering=1)
+        import jax.monitoring
+        jax.monitoring.register_event_duration_secs_listener(_count_compile)
     return _out
 
 
+def _event(ev, nodeid):
+    _trace_file().write(json.dumps({
+        "ev": ev, "id": nodeid, "t": time.time(), "compiles": _compiles[0],
+        "compile_s": round(_compiles[1], 3)}) + "\n")
+
+
 def pytest_runtest_logstart(nodeid, location):
-    _trace_file().write(json.dumps({"ev": "start", "id": nodeid,
-                                    "t": time.time()}) + "\n")
+    _event("start", nodeid)
 
 
 def pytest_runtest_logfinish(nodeid, location):
-    _trace_file().write(json.dumps({"ev": "end", "id": nodeid,
-                                    "t": time.time()}) + "\n")
+    _event("end", nodeid)
 
 
 def pytest_collection_finish(session):
@@ -75,9 +98,12 @@ def _is_port(path):
     return os.path.basename(path).startswith("test_torch_")
 
 
-def load(folder):
+def load(folder, compiles=False):
     """{nodeid: (worker, start, seconds)}, times from the first start; a
-    test cut before its end counts from its start to the last event."""
+    test cut before its end counts from its start to the last event.  With
+    ``compiles``, {nodeid: JAX backend compiles made from the test's start
+    to its end} (0 for a test cut before its end); with ``compiles`` =
+    ``"seconds"``, the seconds of JAX's compile pipeline instead."""
     events = {}
     for path in glob.glob(os.path.join(folder, "gw*.jsonl")):
         worker = os.path.basename(path)[:-len(".jsonl")]
@@ -85,7 +111,13 @@ def load(folder):
             e = json.loads(line)
             if "id" not in e:
                 continue
-            events.setdefault(e["id"], {"w": worker})[e["ev"]] = e["t"]
+            v = events.setdefault(e["id"], {"w": worker})
+            v[e["ev"]] = e["t"]
+            v["c_" + e["ev"]] = e.get("compile_s" if compiles == "seconds"
+                                      else "compiles", 0)
+    if compiles:
+        return {k: v.get("c_end", v.get("c_start", 0)) - v.get("c_start", 0)
+                for k, v in events.items()}
     t0 = min(v["start"] for v in events.values())
     last = max(max(v.get("start", 0), v.get("end", 0))
                for v in events.values())
@@ -95,27 +127,40 @@ def load(folder):
 
 def report(folder):
     tests = load(folder)
+    made = load(folder, compiles=True)
+    spent = load(folder, compiles="seconds")
     files = {}
     for nodeid, (worker, start, secs) in tests.items():
-        f = files.setdefault(_file(nodeid), [worker, start, 0.0, 0.0, 0])
+        f = files.setdefault(_file(nodeid),
+                             [worker, start, 0.0, 0.0, 0, 0, 0.0])
         f[1] = min(f[1], start)
         f[2] = max(f[2], start + secs)
         f[3] += secs
         f[4] += 1
+        f[5] += made.get(nodeid, 0)
+        f[6] += spent.get(nodeid, 0.0)
     by_worker = collections.defaultdict(list)
-    for name, (worker, start, end, secs, n) in files.items():
-        by_worker[worker].append((start, end, secs, n, name))
+    for name, (worker, start, end, secs, n, c, cs) in files.items():
+        by_worker[worker].append((start, end, secs, n, c, cs, name))
     for worker in sorted(by_worker):
         rows = sorted(by_worker[worker])
         print(f"{worker}: busy {sum(r[2] for r in rows):.1f} s, last end "
               f"{rows[-1][1]:.1f} s")
-        for start, end, secs, n, name in rows:
-            print(f"  {start:8.1f} {end:8.1f} {secs:8.1f} {n:4d}  {name}")
+        for start, end, secs, n, c, cs, name in rows:
+            print(f"  {start:8.1f} {end:8.1f} {secs:8.1f} {n:4d} {c:5d} "
+                  f"{cs:7.1f}  {name}")
     port = sum(f[3] for name, f in files.items() if _is_port(name))
     total = sum(f[3] for f in files.values())
+    port_c = sum(f[5] for name, f in files.items() if _is_port(name))
     print(json.dumps({"tests": len(tests), "worker_seconds": round(total, 1),
                       "port_files": round(port, 1),
                       "other_files": round(total - port, 1),
+                      "port_compiles": port_c,
+                      "port_compile_seconds": round(sum(
+                          f[6] for name, f in files.items()
+                          if _is_port(name)), 1),
+                      "other_compiles": sum(f[5] for f in files.values())
+                      - port_c,
                       "last_end": round(max(f[2] for f in files.values()),
                                         1)}))
 
