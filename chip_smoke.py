@@ -221,9 +221,43 @@ script exits non-zero without a result):
     float32: every lane the port's single solve on the card, the lanes of
     ``BATCH_EXACT_JAX`` the JAX package's, and one K4 launch of 12
     columns (the SMW payload) per batched factorization.
+15. ``nl_sparse`` — the front end of AMPL users: ``minsurf_nl(100)``
+    (the COPS minimal surface with obstacle on a 100 × 100 grid, n =
+    10,201, its boundary fixed by equal bounds) written as a text ``.nl``
+    file and solved through ``solve_nl`` on the card (``sparse="auto"``:
+    the template compiler, then the banded KKT with b = 256, bw = 1, nb =
+    40, every factorization K1 and every backsolve K2) in float64 and
+    float32, each against the JAX package's CPU results (``NL_REFERENCE``:
+    status, iterations and factorizations exactly, the objective within
+    1e-8, float64 backsolves exactly and float32 ones inside their
+    one-ulp spread ``NL_BACKSOLVE_SPREAD``), K1 launched once per
+    factorization and K2 once per backsolve, nothing else; a repeat, the
+    binary encoding of the file (``convert_nl``) and the ``.sol`` file
+    read back (``read_sol``) bit for bit, and the solver executable
+    (``python -m madnlp_tpu_torch.models.nl stub -AMPL`` in a subprocess
+    on the card, after the checked solves) writing the same ``.sol``;
+    K1/K2 against their plain
+    versions on the solve's last band and timed there beside their
+    bounds; ``TIMED_NL_SOLVES`` warmed re-solves per dtype, each bit for
+    bit the first, for the median iter/s, one more under torch.profiler
+    for the busy share, and the model's
+    ``obj``, ``grad`` and ``hess_coords`` timed apart by CUDA events at
+    the solution (milliseconds per iteration, share of the wall).
+16. ``frontends`` — ``from_scipy`` (HS15 with a NonlinearConstraint; the
+    dict and LinearConstraint model) and ``host_model`` (with
+    ``lag_hess``; without it under compact L-BFGS) on the card against the
+    JAX package's numbers (``FRONTEND_REFERENCE``), K7 once per
+    factorization and least-squares start where the condensed system
+    takes LDLᵀ, never under Cholesky; the host models' round trips.
+17. ``harness`` — ``testing.test_linear_solver`` for LDL (K7), CHOLESKY,
+    LU, QR and EVD, ``testing.test_kkt_system`` on every KKT system the
+    port has (dense LDL and EVD, condensed Cholesky and LDL, sparse on
+    dense storage, banded SPARSE in both dtypes and SCALED_SPARSE on
+    K1/K2), each with its launches; the whole behavior suite on the card;
+    ``solve_jitted`` bit for bit ``solve()`` on hs15.
 
-Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.
+Then the ``{"kernels": [...]}`` line (K1 and K2 also on the minimal
+surface's band) and, last, the ``{"ok": true, ...}`` line.
 """
 
 import json
@@ -798,6 +832,52 @@ BATCH_EXACT_JAX = {
     },
 }
 
+
+# The front ends (slice A3).  ``nl_sparse``: the COPS minimal surface with
+# obstacle on a 100 × 100 grid (Dolan, Moré and Munson, COPS 3.0,
+# ANL/MCS-TM-273), n = 10,201, written as an AMPL text file by
+# ``madnlp_tpu_torch.testing.minsurf_nl`` and solved through ``solve_nl``
+# (``sparse="auto"``: the template compiler, then the banded KKT on K1/K2,
+# N = 10,201: b = 256, bw = 1, nb = 40).  The JAX package's results on the
+# CPU, (status, iterations, factorization_cnt, backsolve_cnt, objective),
+# from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tools/a3_pins.py nl
+# float64 with the default band backend, float32 through the Pallas
+# kernels in interpret mode (the TPU kernel's order, which the port
+# follows).  Both are held exactly, the objective within OBJ_RTOL.
+NL_NX = 100
+NL_REFERENCE = {
+    "float64": ("SOLVE_SUCCEEDED", 32, 32, 100, 2.7495232903700737),
+    "float32": ("SOLVE_SUCCEEDED", 31, 31, 219, 2.7495232903726623),
+}
+# float32 backsolves are a property of the rounding: one-ulp twins of the
+# solve (x0 moved by at most one float64 ulp) take 214-219 in the JAX
+# package on the CPU (seeds 0-6) and 210-215 in the port on the card
+# (seeds 0-8; NVIDIA H100 80GB HBM3, 700.00 W), every twin at 31
+# iterations and 31 factorizations (tools/spread.py minsurf --pkg jax|port
+# --dtype float32; ROADMAP "Settled"), so the float32 solve's backsolves
+# are held to the union; status, iterations and factorizations exactly
+NL_BACKSOLVE_SPREAD = {"float32": (210, 219)}
+TIMED_NL_SOLVES = 3
+NL_CALLBACK_REPS = 20
+# ``frontends``: the models of tests/test_frontends.py (HS15 through
+# ``from_scipy`` with a NonlinearConstraint, the dict and
+# LinearConstraint model, ``host_model`` with ``lag_hess`` and without it
+# under compact L-BFGS), the JAX package's results on the CPU from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tools/a3_pins.py frontends
+# status, iterations and factorizations held exactly (float64), the
+# objective within OBJ_RTOL; backsolves reported beside the JAX package's
+# (the CPU tests hold them exactly): the card's Cholesky (cuSOLVER) rounds
+# otherwise than the CPU's, and HS15 takes one refinement sweep more.
+FRONTEND_REFERENCE = {
+    "scipy_hs15": ("SOLVE_SUCCEEDED", 23, 29, 39, 360.37976240508465),
+    "scipy_dict_linear": ("SOLVE_SUCCEEDED", 4, 4, 4, 1.3333333333333337),
+    "host_qp": ("SOLVE_SUCCEEDED", 1, 1, 1, -0.7272727272727275),
+    "host_lbfgs": ("SOLVE_SUCCEEDED", 6, 6, 6, 0.9999999500540218),
+}
+# ``harness``: ``testing.test_kkt_system`` on every KKT system the port
+# has; the banded cases on ``sparse_qp.build(n=1000)`` (N = 1500: b = 128)
+HARNESS_QP_N = 1000
 
 def emit(obj):
     print(json.dumps(obj, default=_plain), flush=True)
@@ -3660,6 +3740,443 @@ def phase_batch_step_options_exact(torch, port):
     return out
 
 
+# -- 15. the front ends and the test harness ------------------------------------
+
+
+def _nl_solve(torch, port, path, dtype, keep=None, **options):
+    """``solve_nl(path)`` on the card as an AMPL user's file reaches it
+    (``sparse="auto"``), every kernel's count set to 0 just before; the
+    wall includes the parse and the template compile.  ``keep`` collects
+    the last band K1 factorized.  Returns (stats, wall, kernel counts)."""
+    from madnlp_tpu_torch.models import nl
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    factorize = bk.factorize
+    if keep is not None:
+        def keeping(struct, band):
+            keep["struct"], keep["band"] = struct, band.clone()
+            return factorize(struct, band)
+        bk.factorize = keeping
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t = time.perf_counter()
+    try:
+        stats = nl.solve_nl(path, device="cuda", dtype=dtype,
+                            print_level=port.PrintLevel.ERROR, **options)
+        torch.cuda.synchronize()
+    finally:
+        bk.factorize = factorize
+    return stats, time.perf_counter() - t, _all_counts()
+
+
+def _check_counts(what, stats, ref, counts, expect, backsolves=None):
+    """Status, iterations, factorizations and backsolves exactly the JAX
+    package's ``ref`` (backsolves inside ``backsolves``, a one-ulp spread,
+    where given), the objective within OBJ_RTOL, a finite solution; the
+    kernels of ``expect`` ({name: launches}) launched exactly so often and
+    every other kernel and witness never."""
+    status, iters, facts, backs, obj = ref
+    c = stats.counters
+    got = (stats.status.name, stats.iter, c["factorization_cnt"],
+           c["backsolve_cnt"])
+    lo, hi = backsolves or (backs, backs)
+    if got[:3] != (status, iters, facts) or not lo <= got[3] <= hi:
+        raise AssertionError(f"{what}: (status, iter, factorizations, "
+                             f"backsolves) {got}, JAX {ref[:4]}, "
+                             f"backsolves in {(lo, hi)}")
+    if abs(stats.objective - obj) > OBJ_RTOL * abs(obj):
+        raise AssertionError(f"{what}: objective {stats.objective!r}, "
+                             f"JAX {obj!r}")
+    if not np.isfinite(stats.solution).all():
+        raise AssertionError(f"{what}: non-finite solution")
+    others = dict(counts)
+    _no_witness(others)
+    launched = {k: others.pop(k) for k in expect}
+    if launched != expect or any(others.values()):
+        raise AssertionError(f"{what}: kernels launched {counts}, "
+                             f"expected {expect}")
+
+
+def _time_nl_band(torch, st, band):
+    """K1 and K2 on the .nl solve's last band, timed by CUDA events beside
+    their plain versions and their bounds."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    work = torch.empty_like(band)
+    f = bk.factorize(st, band.clone())
+    rhs = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (st.nbp * st.b, 1)), dtype=band.dtype, device=band.device)
+    rwork = torch.empty_like(rhs)
+    invL = torch.empty_like(f.invL)
+    d = torch.ones((st.nbp * st.b,), dtype=band.dtype, device=band.device)
+    pinv = torch.empty_like(f.invL)
+    pd = torch.ones_like(d)
+    times = {
+        "K1": _time_events(
+            torch, lambda: bk.banded_factorize_cuda(work, invL, d, st.nb,
+                                                    st.b, st.bw),
+            lambda: work.copy_(band), 20),
+        "K1_plain": _time_events(
+            torch, lambda: plain.factorize_columns(work, pinv, pd, st.nb,
+                                                   st.b, st.bw),
+            lambda: work.copy_(band), 1),
+        "K2": _time_events(
+            torch, lambda: bk.banded_solve_cuda(f.band, f.invL, f.d, rwork),
+            lambda: rwork.copy_(rhs), 20),
+        "K2_plain": _time_events(
+            torch, lambda: plain.solve_padded(f.band, f.invL, f.d, rwork),
+            lambda: rwork.copy_(rhs), 5),
+    }
+    dtype = "float32" if band.dtype == torch.float32 else "float64"
+    return times, _bounds(st.nb, st.b, st.bw, band.element_size(), dtype)
+
+
+def _nl_callback_ms(torch, model, x, counters, iters):
+    """The model's callbacks at ``x`` timed apart by CUDA events (median of
+    NL_CALLBACK_REPS calls), and their milliseconds per iteration of the
+    solve whose ``counters`` are given."""
+    y = x.new_zeros((model.m,))
+    calls = {"obj": (lambda: model.obj(x), "obj_cnt"),
+             "grad": (lambda: model.grad(x), "grad_cnt"),
+             "hess_coords": (lambda: model.hess_coords(x, y, 1.0),
+                             "hess_cnt")}
+    ms, per_iter = {}, {}
+    for name, (fn, counter) in calls.items():
+        fn()
+        ms[name] = _time_events(torch, fn, lambda: None, NL_CALLBACK_REPS)
+        per_iter[name] = ms[name] * counters[counter] / iters
+    return ms, per_iter
+
+
+def phase_nl_sparse(torch, port):
+    """``minsurf_nl(NL_NX)`` through ``solve_nl`` on the card (the template
+    compiler, the banded KKT on K1/K2) in float64 and float32, each held to
+    NL_REFERENCE, K1 launched once per factorization and K2 once per
+    backsolve; the binary file and the ``.sol`` bit for bit, and the
+    executable's ``.sol`` (run after the checked solves); K1/K2 against
+    their plain versions on the solve's last band and timed there;
+    TIMED_NL_SOLVES warmed re-solves, bit for bit the first, for the
+    median iter/s, one more under torch.profiler for the busy share, and
+    the callbacks' milliseconds per iteration.  Returns the float64
+    solve's launches and the bands' times and bounds."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nl_")
+    try:
+        return _nl_phase(torch, port, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _nl_phase(torch, port, tmp):
+    import shutil
+
+    from madnlp_tpu_torch.models import nl
+    from madnlp_tpu_torch.testing import minsurf_nl
+
+    text = os.path.join(tmp, "minsurf.nl")
+    t = time.perf_counter()
+    with open(text, "w") as f:
+        f.write(minsurf_nl(NL_NX))
+    written = time.perf_counter() - t
+    out = _nl_checked(torch, port, nl, tmp, text, written)
+    # the solver executable in a process of its own, on the card, once the
+    # checked solves are done (nothing else runs beside it)
+    stub = os.path.join(tmp, "cli")
+    shutil.copyfile(text, stub + ".nl")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_exe = time.perf_counter()
+    exe = subprocess.run(
+        [sys.executable, "-m", "madnlp_tpu_torch.models.nl", stub, "-AMPL"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    exe_s = time.perf_counter() - t_exe
+    with open(out.pop("sol")) as f:
+        sol_text = f.read()
+    exe_ok = exe.returncode == 0 and os.path.exists(stub + ".sol")
+    if exe_ok:
+        with open(stub + ".sol") as f:
+            exe_ok = f.read() == sol_text
+    emit({"phase": "nl_sparse", "executable_rc": exe.returncode,
+          "executable_sol_identical": exe_ok, "executable_s": exe_s,
+          "executable_stderr_tail": exe.stderr[-500:]})
+    if not exe_ok:
+        raise AssertionError("nl_sparse: the executable's .sol differs")
+    _nl_timing(torch, port, out)
+    return out
+
+
+def _nl_checked(torch, port, nl, tmp, text, written):
+    """The checked solves of the nl_sparse phase (float64 writing the
+    ``.sol``, float32, the binary file), the ``.sol`` read back, K1/K2
+    against their plain versions on the last bands and timed there."""
+    t = time.perf_counter()
+    model = nl.read_nl(text, sparse=True)
+    compiled = time.perf_counter() - t
+    sol = os.path.join(tmp, "minsurf.sol")
+    out, kept, stats = {"model": model, "sol": sol}, {}, {}
+    for dtype in ("float64", "float32"):
+        kept[dtype] = {}
+        s, wall, counts = _nl_solve(
+            torch, port, text, dtype, keep=kept[dtype],
+            sol_path=sol if dtype == "float64" else None)
+        ref = NL_REFERENCE[dtype]
+        _check_counts(f"nl {dtype}", s, ref, counts,
+                      {"banded_factorize_cuda": ref[2],
+                       "banded_solve_cuda": s.counters["backsolve_cnt"]},
+                      NL_BACKSOLVE_SPREAD.get(dtype))
+        st = kept[dtype]["struct"]
+        emit({"phase": "nl_sparse", "dtype": dtype, "n": model.n,
+              "nnzh": model.nnzh, "status": s.status.name, "iter": s.iter,
+              "objective": s.objective, "reference": ref,
+              "counters": s.counters,
+              "geometry": {"N": st.N, "b": st.b, "bw": st.bw, "nb": st.nb,
+                           "W": st.W},
+              "K1_launches": counts["banded_factorize_cuda"],
+              "K2_launches": counts["banded_solve_cuda"],
+              "solve_nl_wall_s": wall, "write_s": written,
+              "parse_and_compile_s": compiled})
+        stats[dtype] = s
+        if dtype == "float64":
+            out["launches"] = (counts["banded_factorize_cuda"],
+                               counts["banded_solve_cuda"])
+    out["stats"] = stats
+    s64 = stats["float64"]
+
+    binary = os.path.join(tmp, "minsurf_bin.nl")
+    nl.convert_nl(text, binary)
+    from_binary, _, _ = _nl_solve(torch, port, binary, "float64")
+    primal, duals, code, msg = nl.read_sol(sol, model.n, model.m)
+    sol_ok = (code == 0 and np.array_equal(primal, s64.solution)
+              and np.array_equal(duals, s64.multipliers))
+    emit({"phase": "nl_sparse",
+          "binary_bit_identical": _same_stats(from_binary, s64),
+          "sol_round_trip_bit_identical": sol_ok, "sol_code": code,
+          "sol_message": msg})
+    if not (_same_stats(from_binary, s64) and sol_ok):
+        raise AssertionError("nl_sparse: the binary file or the .sol round "
+                             "trip differs")
+
+    # K1/K2 against their plain versions on the solve's last band: float64
+    # held, float32 reported (an ill-conditioned KKT amplifies rounding)
+    real = {dt: compare_kernels(torch, kept[dt]["struct"], kept[dt]["band"])
+            for dt in ("float64", "float32")}
+    st = kept["float64"]["struct"]
+    emit({"phase": "nl_band", "b": st.b, "bw": st.bw, "nb": st.nb, "N": st.N,
+          "float64_max_rel_err": real["float64"]["rel"],
+          "float64_tol": REAL_BAND_RTOL,
+          "float32_max_rel_err (reported)": real["float32"]["rel"],
+          "inertia": {dt: r["inertia"] for dt, r in real.items()}})
+    if max(real["float64"]["rel"].values()) > REAL_BAND_RTOL or \
+            real["float64"]["inertia"][0] != real["float64"]["inertia"][1]:
+        raise AssertionError("nl_band: K1/K2 disagree with plain")
+    out["worst"] = {"band": real["float64"]["abs"]["band"],
+                    "solve": real["float64"]["abs"]["solve"]}
+    out["kept"] = kept
+    return out
+
+
+def _nl_timing(torch, port, out):
+    """The nl_sparse phase's timings, once the executable is done: K1/K2
+    on the last bands; per dtype TIMED_NL_SOLVES warmed cold re-solves of
+    one solver (the solve alone, each bit for bit the checked solve) for
+    the median iter/s, one more under torch.profiler, and the callbacks
+    at the solution."""
+    model, stats, kept = out.pop("model"), out.pop("stats"), out.pop("kept")
+    out["times"], out["bounds"] = {}, {}
+    for dt in ("float32", "float64"):
+        times, bounds = _time_nl_band(torch, kept[dt]["struct"],
+                                      kept[dt]["band"])
+        out["times"][dt], out["bounds"][dt] = times, bounds
+        emit({"phase": "nl_band_timing", "dtype": dt, "ms": times,
+              "bounds": {k: bounds[k] for k in ("K1", "K2")},
+              "K1_share_of_bound": bounds["K1"]["bound_ms"] / times["K1"],
+              "K2_share_of_bound": bounds["K2"]["bound_ms"] / times["K2"]})
+    for dt in ("float64", "float32"):
+        solver = port.MadNLPSolver(model, device="cuda", dtype=dt,
+                                   print_level=port.PrintLevel.ERROR)
+
+        def run():
+            solver.state = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s = solver.solve()
+            torch.cuda.synchronize()
+            if not _same_stats(s, stats[dt]):
+                raise AssertionError(f"nl {dt}: a repeated solve differs")
+            return s.iter, time.perf_counter() - t
+        walls = [run()[1] for _ in range(TIMED_NL_SOLVES)]
+        med = statistics.median(walls)
+        prof = _profile(torch, port, run=run, host=False)
+        x = torch.as_tensor(stats[dt].solution, device="cuda")
+        ms, per_iter = _nl_callback_ms(torch, model, x, stats[dt].counters,
+                                       stats[dt].iter)
+        iters = stats[dt].iter
+        emit({"phase": "nl_timing", "dtype": dt, "repeats_bit_identical":
+              TIMED_NL_SOLVES + 1, "wall_s": walls, "median_wall_s": med,
+              "iter_per_s_median": iters / med,
+              "iter_per_s_min": iters / max(walls),
+              "iter_per_s_max": iters / min(walls),
+              "callback_ms": ms, "callback_ms_per_iter": per_iter,
+              "callbacks_share_of_wall": sum(per_iter.values())
+              / (1e3 * med / iters),
+              **{f"profile_{k}": v for k, v in prof.items()}})
+        out[f"iter_per_s_{dt}"] = iters / med
+
+
+def _frontend_models(port, torch, calls):
+    """The models of tests/test_frontends.py in the port's vocabulary
+    (torch functions written with operators), the host models' numpy
+    callbacks counted in ``calls``: {name: (model, options)}."""
+    from scipy.optimize import Bounds, LinearConstraint, NonlinearConstraint
+
+    P = np.diag([1.0, 2.0, 3.0])
+
+    def counted(name, fn):
+        def f(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args)
+        return f
+
+    return {
+        "scipy_hs15": (port.from_scipy(
+            fun=lambda x: 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2,
+            x0=np.zeros(2),
+            bounds=Bounds(lb=[-np.inf, -np.inf], ub=[0.5, np.inf]),
+            constraints=[NonlinearConstraint(
+                lambda x: torch.stack([x[0] * x[1], x[0] + x[1] ** 2]),
+                lb=[1.0, 0.0], ub=[np.inf, np.inf])]), {}),
+        "scipy_dict_linear": (port.from_scipy(
+            fun=lambda x: ((x - 1.0) ** 2).sum(),
+            x0=np.zeros(3),
+            constraints=[
+                {"type": "eq", "fun": lambda x: x[0] + x[1] + x[2] - 1.0},
+                LinearConstraint(np.array([[1.0, -1.0, 0.0]]), lb=-1.0,
+                                 ub=np.inf)]), {}),
+        "host_qp": (port.host_model(
+            counted("obj", lambda x: 0.5 * x @ P @ x - np.sum(x)),
+            np.zeros(3), counted("grad", lambda x: P @ x - 1.0), m=1,
+            cons=counted("cons", lambda x: np.array([np.sum(x)])),
+            jac=counted("jac", lambda x: np.ones((1, 3))),
+            lag_hess=counted("lag_hess", lambda x, y, ow: ow * P),
+            lcon=[1.0], ucon=[1.0]), {}),
+        "host_lbfgs": (port.host_model(
+            counted("obj", lambda x: float(np.sum((x - 2.0) ** 2))),
+            np.zeros(4), counted("grad", lambda x: 2.0 * (x - 2.0)),
+            uvar=np.full(4, 1.5)),
+            {"hessian_approximation":
+             port.HessianApproximation.COMPACT_LBFGS}),
+    }
+
+
+def phase_frontends(torch, port):
+    """``from_scipy`` and ``host_model`` on the card: each model of
+    FRONTEND_REFERENCE held exactly to the JAX package's numbers, K7
+    launched once per factorization and least-squares start where the
+    condensed system factors with LDLᵀ (equality rows) and never under
+    Cholesky; the host models' round trips per iteration."""
+    k7_total = 0
+    for name, ref in FRONTEND_REFERENCE.items():
+        calls = {}
+        model, opts = _frontend_models(port, torch, calls)[name]
+        solver = port.MadNLPSolver(model, device="cuda",
+                                   print_level=port.PrintLevel.ERROR, **opts)
+        seen = _count_steps(solver)
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t = time.perf_counter()
+        s = solver.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _all_counts()
+        ldl = solver.opts.linear_solver == port.LinearSolver.LDL
+        expect = ({"dense_ldlt_cuda": s.counters["factorization_cnt"]
+                   + seen["least_squares"]} if ldl else {})
+        _check_counts(f"frontends {name}", s, ref, counts, expect,
+                      backsolves=(0, float("inf")))
+        k7_total += counts["dense_ldlt_cuda"]
+        round_trips = sum(calls.values())
+        emit({"phase": "frontends", "run": name, "status": s.status.name,
+              "iter": s.iter, "objective": s.objective, "reference": ref,
+              "counters": s.counters,
+              "linear_solver": solver.opts.linear_solver.name,
+              "kkt_system": solver.opts.kkt_system.name,
+              "K7_launches": counts["dense_ldlt_cuda"],
+              "least_squares_starts": seen["least_squares"],
+              "host_calls": calls or None,
+              "host_round_trips_per_iter": round_trips / max(s.iter, 1)
+              if calls else None, "wall_s": wall})
+    return k7_total
+
+
+def phase_harness(torch, port):
+    """The shipped harness on the card: ``test_linear_solver`` for every
+    dense solver the port has (K7 for LDL), ``test_kkt_system`` on every KKT
+    system it has (banded SPARSE on K1/K2, LDL storage on K7), the whole
+    behavior suite, and ``solve_jitted`` bit for bit ``solve()``."""
+    import madnlp_tpu_torch.testing as mt
+    from madnlp_tpu_torch.models.instances import hs15, sparse_qp
+
+    LS, KS = port.LinearSolver, port.KKTSystem
+    for solver in (LS.LDL, LS.CHOLESKY, LS.LU, LS.QR, LS.EVD):
+        _reset_all_counts()
+        mt.test_linear_solver(solver, device="cuda")
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        want = {"dense_ldlt_cuda": 1} if solver == LS.LDL else {}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"harness {solver.name}: launches {counts}")
+        emit({"phase": "harness", "test_linear_solver": solver.name,
+              "launches": {k: v for k, v in counts.items() if v}})
+    qp = lambda: sparse_qp.build(n=HARNESS_QP_N)  # noqa: E731
+    cases = {
+        "dense_ldl": (None, KS.DENSE, LS.LDL, {}, "K7"),
+        "dense_evd": (None, KS.DENSE, LS.EVD, {}, None),
+        "condensed_cholesky": (None, KS.DENSE_CONDENSED, None, {}, None),
+        "condensed_ldl": (None, KS.DENSE_CONDENSED, LS.LDL, {}, "K7"),
+        "sparse_dense_storage": (qp, KS.SPARSE, LS.LDL, {}, "K7"),
+        "sparse_banded": (qp, KS.SPARSE, LS.BANDED, {}, "K1K2"),
+        "sparse_banded_f32": (qp, KS.SPARSE, LS.BANDED,
+                              {"dtype": "float32", "rtol": 1e-5}, "K1K2"),
+        "scaled_sparse": (qp, KS.SCALED_SPARSE, LS.BANDED, {}, "K1K2"),
+    }
+    for name, (build, kkt, lin, opts, kernels) in cases.items():
+        _reset_all_counts()
+        mt.test_kkt_system(model=build() if build else None, kkt_system=kkt,
+                           linear_solver=lin, device="cuda", **opts)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _all_counts().items() if v}
+        want = {"K7": {"dense_ldlt_cuda": 1},
+                "K1K2": {"banded_factorize_cuda": 1,
+                         "banded_solve_cuda": 1}}.get(kernels, {})
+        if counts != want:
+            raise AssertionError(f"harness {name}: launches {counts}, "
+                                 f"expected {want}")
+        emit({"phase": "harness", "test_kkt_system": name,
+              "launches": counts})
+    _reset_all_counts()
+    t = time.perf_counter()
+    results = mt.run_behavior_suite(device="cuda")
+    torch.cuda.synchronize()
+    if set(results) != set(mt.BEHAVIOR_SUITE):
+        raise AssertionError(f"behavior suite ran {sorted(results)}")
+    emit({"phase": "harness", "behavior_suite": {
+        k: [s.status.name, s.iter, s.objective] for k, s in results.items()},
+        "launches": {k: v for k, v in _all_counts().items() if v},
+        "wall_s": time.perf_counter() - t})
+    a = port.MadNLPSolver(hs15.build(), device="cuda",
+                          print_level=port.PrintLevel.ERROR).solve()
+    b = port.MadNLPSolver(hs15.build(), device="cuda",
+                          print_level=port.PrintLevel.ERROR).solve_jitted()
+    same = _same_stats(a, b) and np.array_equal(a.multipliers_L,
+                                                b.multipliers_L)
+    emit({"phase": "harness", "solve_jitted_bit_identical": same,
+          "iter": b.iter, "objective": b.objective})
+    if not same:
+        raise AssertionError("solve_jitted differs from solve()")
+
 def _options(port, opts):
     """Option names as the port's enums (``"BarrierUpdate.LOQO"``)."""
     out = {}
@@ -3718,6 +4235,9 @@ def main():
     timed(phase_step_options_exact)
     timed(phase_batch_step_options)
     k4_wide = timed(phase_batch_step_options_exact)
+    nl_path = timed(phase_nl_sparse)
+    timed(phase_frontends)
+    timed(phase_harness)
 
     kernels = []
     for path, i, name, key, errs, line in (
@@ -3802,6 +4322,24 @@ def main():
         "bound_ms": wide32["bound"]["bound_ms"],
         "bound_by": wide32["bound"]["bound_by"], "library_ms": None,
     })
+    # K1 and K2 on the .nl minimal surface's band (b = 256, bw = 1, nb =
+    # 40), every field from the float64 solve_nl run: its launches, the
+    # error against plain on its last band, and the times and bounds there
+    for i, (name, key, line) in enumerate((
+            ("banded_factorize_cuda (minsurf .nl band, float64)", "K1", 314),
+            ("banded_solve_cuda (minsurf .nl band, float64)", "K2", 597))):
+        t, b = nl_path["times"]["float64"], nl_path["bounds"]["float64"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "madnlp_tpu_torch/csrc/banded_ldlt.cu",
+            "replaces": f"madnlp_tpu/ops/pallas_banded_stream.py:{line}",
+            "launches": nl_path["launches"][i],
+            "max_abs_err": nl_path["worst"]["band" if key == "K1"
+                                            else "solve"],
+            "ms": t[key], "plain_ms": t[key + "_plain"],
+            "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
+            "library_ms": None,
+        })
     t32, b32 = main_matrix["times"]["float32"], main_matrix["bounds"]["float32"]
     kernels.append({
         "name": "dense_ldlt_cuda", "route": "cuda",

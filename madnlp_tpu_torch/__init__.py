@@ -8,9 +8,12 @@ is the reference this port is held against; the port imports nothing of
 it.
 
 Models come in as dense callbacks (``create_model``, derivatives from
-``torch.func``), sparse ones (``SparseNLPModel``) or MATPOWER case files
-(``models.matpower``, which the package root does not re-export, as in
-the JAX package).  Solver state,
+``torch.func``), sparse ones (``SparseNLPModel``), AMPL ``.nl`` files
+(``read_nl``, ``solve_nl``, ``write_sol``; the solver executable
+``madnlp-tpu-torch-ampl``), ``scipy.optimize`` vocabulary
+(``from_scipy``), opaque NumPy callbacks run on the host (``host_model``)
+or MATPOWER case files (``models.matpower``, which the package root does
+not re-export, as in the JAX package).  Solver state,
 residuals and iterative refinement are float64; only the KKT factor and
 its solves use ``opts.dtype``.  Float32 products must be true float32, so
 TF32 is switched off here.
@@ -27,6 +30,8 @@ from .models.model import (  # noqa: E402
     SparseNLPModel,
     create_model,
 )
+from .models.frontends import from_scipy, host_model  # noqa: E402
+from .models.nl import read_nl, solve_nl, write_sol  # noqa: E402
 from .utils.options import (  # noqa: E402
     BarrierUpdate,
     EqualityTreatment,
@@ -49,6 +54,7 @@ from .ipm.solver import (  # noqa: E402
 
 __all__ = [
     "create_model", "DenseNLPModel", "NLPModel", "SparseNLPModel",
+    "from_scipy", "host_model", "read_nl", "solve_nl", "write_sol",
     "MadNLPOptions", "KKTSystem", "LinearSolver",
     "InertiaCorrection", "BarrierUpdate", "HessianApproximation",
     "FixedVariableTreatment", "EqualityTreatment",

@@ -19,6 +19,7 @@ gives a narrow band and dense storage otherwise.  Entry points run on the card:
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -300,6 +301,22 @@ class MadNLPSolver:
             f"EXIT: {get_status_output(stats.status, self.opts.tol, self.opts.acceptable_tol)}"
         )
         return stats
+
+    def solve_jitted(self, params=None) -> ExecutionStats:
+        """The whole solve in one call, from the model's initial point (the
+        JAX package's one-XLA-computation solve): a cold :meth:`solve`
+        without its log and its wall-time limit, so its ``ExecutionStats``
+        equal a cold ``solve()``'s bit for bit.  Here the steps are still
+        host-driven; capturing them (CUDA graphs) is perf item P3 of the
+        ROADMAP."""
+        opts = self.opts
+        self.opts = dataclasses.replace(opts, print_level=PrintLevel.ERROR,
+                                        output_file="")
+        try:
+            self.state = None
+            return self.solve(params, max_wall_time=math.inf)
+        finally:
+            self.opts = opts
 
     def solve_batch(self, params_batch, sharding=None, chunk_size="auto",
                     probe_iters="auto") -> BatchState:

@@ -26,7 +26,7 @@ def segment_map(targets: np.ndarray, n_out: int) -> np.ndarray:
     counts = np.bincount(targets, minlength=n_out)
     K = max(1, int(counts.max(initial=0)))
     order = np.argsort(targets, kind="stable")
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    starts = np.cumsum(counts) - counts
     slot = np.arange(n_in) - np.repeat(starts, counts)
     table = np.full((n_out, K), n_in, dtype=np.int64)
     table[targets[order], slot] = order

@@ -947,3 +947,68 @@ def test_batched_cluster_solve_of_twelve_columns(dtype):
     ref = plain.banded_solve_batched(st, f, rhs, active)
     for i in np.flatnonzero(active):
         assert _rel(x[i, : st.N], ref[i]) < RTOL[dtype]
+
+
+def test_minsurf_nl_band_kernels_match_plain(tmp_path):
+    """``minsurf_nl(100)`` (n = 10,201) through ``solve_nl`` on the card in
+    float64: K1 once per factorization, K2 once per backsolve, no other
+    kernel; its KKT band has b = 256, bw = 1, nb = 40 (a geometry no other
+    solve path runs); K1/K2 on its last band against their plain
+    versions within 1e-6 (the solve's own ill-conditioned matrix), the
+    inertia equal."""
+    from madnlp_tpu_torch.models import nl
+    from madnlp_tpu_torch.testing import minsurf_nl
+
+    _need_cuda()
+    path = tmp_path / "minsurf.nl"
+    path.write_text(minsurf_nl(100))
+    kept = {}
+    factorize = bk.factorize
+
+    def keeping(struct, band):
+        kept["struct"], kept["band"] = struct, band.clone()
+        return factorize(struct, band)
+
+    bk.factorize = keeping
+    bk.reset_counts()
+    dk.reset_counts()
+    try:
+        stats = nl.solve_nl(str(path), device="cuda",
+                            print_level=T.PrintLevel.ERROR)
+    finally:
+        bk.factorize = factorize
+    counts = {**bk.counts(), **dk.counts()}
+    assert stats.status == T.Status.SOLVE_SUCCEEDED
+    assert counts.pop("banded_factorize_cuda") == \
+        stats.counters["factorization_cnt"]
+    assert counts.pop("banded_solve_cuda") == stats.counters["backsolve_cnt"]
+    assert not any(counts.values()), counts
+    st, band = kept["struct"], kept["band"]
+    assert (st.b, st.bw, st.nb) == (256, 1, 40)
+    kf = bk.factorize(st, band.clone())
+    pf = plain.banded_factorize(st, band)
+    rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(st.N),
+                          device="cuda")
+    for a, ref in ((kf.band[: st.nb], pf.band[: st.nb]),
+                   (kf.invL[: st.nb], pf.invL[: st.nb]), (kf.d, pf.d),
+                   (bk.solve(st, kf, rhs), plain.banded_solve(st, kf, rhs))):
+        assert _rel(a, ref) < 1e-6
+    assert plain.banded_inertia(st, kf) == plain.banded_inertia(st, pf)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_banded_harness_round_trip_on_the_card(dtype):
+    """``testing.test_kkt_system`` on the banded SPARSE system on the card
+    (K1 and K2, one launch each), float32 to 1e-5 (no refinement)."""
+    import madnlp_tpu_torch.testing as mt
+    from madnlp_tpu_torch.models.instances import sparse_qp
+
+    _need_cuda()
+    bk.reset_counts()
+    assert mt.test_kkt_system(
+        model=sparse_qp.build(n=1000), kkt_system=T.KKTSystem.SPARSE,
+        linear_solver=T.LinearSolver.BANDED, device="cuda", dtype=dtype,
+        rtol=1e-5 if dtype == "float32" else 1e-8)
+    counts = bk.counts()
+    assert counts["banded_factorize_cuda"] == 1
+    assert counts["banded_solve_cuda"] == 1

@@ -63,3 +63,27 @@ def test_the_check_sees_forbidden_imports(tmp_path):
                    "    import madnlp_tpu_torch\n"
                    "    from . import sibling\n")
     assert _bad_imports(str(src)) == ["jax.numpy", "madnlp_tpu.ops"]
+
+
+A3_MODULES = ("models/nl.py", "models/nl_sparse.py", "models/frontends.py",
+              "models/instances/cops.py", "testing.py")
+
+
+@pytest.mark.parametrize("module", A3_MODULES)
+def test_the_front_ends_and_the_harness_are_ported(module):
+    path = os.path.join(ROOT, "madnlp_tpu_torch", *module.split("/"))
+    assert path in _sources()
+    assert _bad_imports(path) == []
+
+
+def test_the_root_exports_the_front_ends():
+    import madnlp_tpu_torch as T
+    import madnlp_tpu_torch.testing as mt
+
+    for name in ("from_scipy", "host_model", "read_nl", "solve_nl",
+                 "write_sol"):
+        assert name in T.__all__ and callable(getattr(T, name))
+    for name in ("test_linear_solver", "test_kkt_system",
+                 "run_behavior_suite"):
+        assert name in mt.__all__ and callable(getattr(mt, name))
+    assert callable(T.MadNLPSolver.solve_jitted)

@@ -37,6 +37,10 @@ its fixed options, and what a seed moves.
   (the same noise in both packages).
 * ``rosenbrock`` — compact L-BFGS on the 10-variable Rosenbrock function
   from x0 = -1.2 (tests/test_quasi_newton.py); the seed moves x0.
+* ``minsurf`` — the COPS minimal surface ``minsurf_nl(NB)`` (NB 100 by
+  default: n = 10,201) read from its ``.nl`` file by each package's
+  template compiler, default options (the banded KKT); the seed moves
+  x0 (chip_smoke.py's ``nl_sparse`` phase).
 
 ``--pkg jax`` runs the JAX package on the CPU (a float32 banded run
 through the Pallas kernels in interpret mode, ``--backend``
@@ -320,6 +324,26 @@ def _rosenbrock_case(P, a):
     return _rosenbrock(P, np.full(10, -1.2)), opts
 
 
+def _minsurf(P, a):
+    """``minsurf_nl(NX)`` (``madnlp_tpu_torch/testing.py``; NX = --nb, 100
+    by default) through each package's ``.nl`` template compiler, default
+    options (the banded KKT at NX = 100, K1/K2 on the card)."""
+    import importlib
+    import tempfile
+
+    from madnlp_tpu_torch.testing import minsurf_nl
+
+    path = os.path.join(tempfile.mkdtemp(), "minsurf.nl")
+    with open(path, "w") as f:
+        f.write(minsurf_nl(a.nb or 100))
+    nl = importlib.import_module(P.pkg.__name__ + ".models.nl")
+    opts = _options(P, "default", a, banded=False)
+    if P.name == "jax":
+        opts["banded_backend"] = a.backend or (
+            "pallas_interpret" if a.dtype == "float32" else "auto")
+    return nl.read_nl(path, sparse=True), opts
+
+
 def _move_x0(P, model, seed):
     model.x0 = ulp(model.x0, seed)
     return model, None
@@ -339,6 +363,7 @@ CASES = {
         model, _matrix_noise(P, seed, 1.2e-7, torch_generator=True))),
     "qr": (_qr, lambda P, model, seed: (model, _matrix_noise(P, seed, EPS))),
     "rosenbrock": (_rosenbrock_case, _move_rosenbrock_x0),
+    "minsurf": (_minsurf, _move_x0),
 }
 
 
