@@ -214,8 +214,8 @@ script exits non-zero without a result):
     (``BATCH_STEP_JAX``); K3 and K4 launched, K1/K2 and every witness
     never, K4's launches per batched step; the run repeated bit for bit
     with a window of its batched steps under torch.profiler (the busy
-    share), and ``TIMED_BATCHES`` more, bit for bit, for the median
-    lane-iterations per second.
+    share), and ``TIMED_OPTION_BATCHES`` more, bit for bit, for the
+    median lane-iterations per second.
 14. ``batch_step_options_exact`` — compact L-BFGS inside ``solve_batch``
     on the parametric nb=30 flagship at ``BATCH_SCALES``, float64 and
     float32: every lane the port's single solve on the card, the lanes of
@@ -250,14 +250,58 @@ script exits non-zero without a result):
     factorization and least-squares start where the condensed system
     takes LDLᵀ, never under Cholesky; the host models' round trips.
 17. ``harness`` — ``testing.test_linear_solver`` for LDL (K7), CHOLESKY,
-    LU, QR and EVD, ``testing.test_kkt_system`` on every KKT system the
-    port has (dense LDL and EVD, condensed Cholesky and LDL, sparse on
-    dense storage, banded SPARSE in both dtypes and SCALED_SPARSE on
-    K1/K2), each with its launches; the whole behavior suite on the card;
-    ``solve_jitted`` bit for bit ``solve()`` on hs15.
+    LU, QR, EVD, BLOCK_CHOLESKY and HYKKT (its K_γ through K7),
+    ``testing.test_kkt_system`` on every KKT system the port has (dense LDL
+    and EVD, condensed Cholesky and LDL, sparse on dense storage, banded
+    SPARSE in both dtypes, SCALED_SPARSE, SPARSE_UNREDUCED and
+    SPARSE_CONDENSED on K1/K2, the unreduced system of a dense model and
+    DENSE under HYKKT on K7, DENSE under BLOCK_CHOLESKY), each with its
+    launches; the whole behavior suite on the card; ``solve_jitted`` bit
+    for bit ``solve()`` on hs15.
+18. ``sparse_unreduced`` — the flagship ``opf.build_sparse(nb=600,
+    seed=0)`` under ``kkt_system=SPARSE_UNREDUCED, linear_solver=BANDED``
+    (the √z-symmetrized 4-block system, N = 3·nw + m, on K1/K2) in float64
+    and float32, each against the JAX package's CPU results
+    (``UNREDUCED_REFERENCE``: status, iterations and factorizations
+    exactly, the objective within 1e-8, backsolves exactly in float64 and
+    within 6% in float32, or their one-ulp spread ``UNREDUCED_SPREAD``
+    where rounding moves them), K1 once per factorization and K2 at least
+    once per backsolve (and once each for the least-squares start); the float32
+    solve repeated bit for bit; K1/K2 against their plain versions on the
+    float64 solve's last band (the factor entrywise, and K1 then K2
+    by the backward error of one solve beside the plain factorization's
+    and solve's: the band is ill-conditioned at the solution) and timed
+    on both dtypes' last bands beside their bounds; ``TIMED_A4_SOLVES`` float32 solves, each bit for
+    bit the first, for the median iter/s and one under torch.profiler for
+    the busy share.
+19. ``sparse_condensed`` — the same model under
+    ``kkt_system=SPARSE_CONDENSED, linear_solver=BANDED`` at
+    ``tol=CONDENSED_TOL`` (the n×n SPD band K = W + Σx + JᵀDJ on K1/K2)
+    in float64: the same checks (the float64 solve timed and repeated;
+    the factor by the backward error alone, its entries part from plain's
+    by 1e-4 with the summation order), the counts held to the JAX
+    package's one-ulp spread ``CONDENSED_SPREAD`` (ROADMAP §C, R3), status
+    and objective to the JAX package's condensed solve.
+    Not in float32: the JAX package's float32 condensed solve reaches no
+    solution (500 iterations at nb=14 and 30, either band backend).
+20. ``range_space`` — the dense ``opf.build(nb=600, seed=0)`` under
+    ``kkt_system=DENSE`` with ``linear_solver=HYKKT`` (the card's default
+    backend: K_γ through K7; float64 and float32) and ``BLOCK_CHOLESKY``
+    (float64, at ``BCHOL_NB``: the largest flagship size tried at which
+    the JAX package's BLOCK_CHOLESKY solve succeeds; at the other sizes
+    tried from 80 to 600 it reaches no solution), and the one-variable
+    infeasible model under DENSE + HYKKT
+    (INFEASIBLE_PROBLEM_DETECTED, its robust steps in HYKKT's ``rr`` mode),
+    each against the JAX package (``RANGE_SPACE_REFERENCE``, HYKKT with
+    ``hykkt_backend="ldl"``); K7 once per factorization and once for the
+    least-squares start, no Cholesky under HYKKT, the CG's iterations per
+    backsolve and host reads per iteration; K7 against its plain version
+    on its last K_γ and timed there beside its bound; the timed float32
+    HYKKT solves, each bit for bit the first.
 
 Then the ``{"kernels": [...]}`` line (K1 and K2 also on the minimal
-surface's band) and, last, the ``{"ok": true, ...}`` line.
+surface's band and on the unreduced and condensed bands, K7 also on
+HYKKT's K_γ) and, last, the ``{"ok": true, ...}`` line.
 """
 
 import json
@@ -407,6 +451,9 @@ BACKSOLVE_RTOL = 0.06
 BACKSOLVE_LANE_RTOL = 0.15
 BATCH_LANES = 3          # lanes of the batched kernel checks
 TIMED_BATCHES = 3
+# the step options' batches (eight runs): two timed runs each keep the
+# script inside its time limit beside the A4 phases
+TIMED_OPTION_BATCHES = 2
 
 # The dense-callback path: the JAX package's default solve of the dense
 # nb=600 ACOPF on the CPU, (status, iterations, factorization_cnt,
@@ -878,6 +925,64 @@ FRONTEND_REFERENCE = {
 # ``harness``: ``testing.test_kkt_system`` on every KKT system the port
 # has; the banded cases on ``sparse_qp.build(n=1000)`` (N = 1500: b = 128)
 HARNESS_QP_N = 1000
+
+# Slice A4: the flagship model under the unreduced and the condensed
+# systems (K1/K2 on their bands), the dense flagship under HYKKT (K_γ on
+# K7) and BLOCK_CHOLESKY.  The JAX package's results on the CPU, (status,
+# iterations, factorization_cnt, backsolve_cnt, objective), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tools/a4_pins.py CASE --nb NB \
+#       --dtype DT
+# (float32 banded runs through the Pallas kernels in interpret mode, the
+# TPU kernel's order, which the port follows; HYKKT with
+# hykkt_backend="ldl", the algorithm of K7), and their one-ulp spreads
+# (x0 moved by at most one ulp, seeds 0-6) from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tools/spread.py CASE --pkg jax \
+#       --nb 600 --seeds 6
+A4_NB = 600
+# float64 is moved by rounding (ROADMAP §C, R3): held to the JAX
+# package's one-ulp spread (which holds the port's twins on the card,
+# 25/51-52/332-348); float32 to the pin (iterations and factorizations
+# exactly, backsolves within BACKSOLVE_RTOL; the card's twins 25/59-60/
+# 481-496)
+UNREDUCED_REFERENCE = {
+    "float64": ("SOLVE_SUCCEEDED", 26, 54, 366, 583.723002172411),
+    "float32": ("SOLVE_SUCCEEDED", 25, 60, 497, 583.7230018594356),
+}
+UNREDUCED_SPREAD = {"float64": {"iter": (25, 26),
+                                "factorization_cnt": (51, 54),
+                                "backsolve_cnt": (331, 366)}}
+CONDENSED_TOL = 1e-6
+# every count moved by rounding (R3): held to the JAX package's twins
+# (the port's on the card, 82-97/187-223/1434-1732, are reported in
+# PERF.md, not used here); the objective of a twin lands up to 2e-8
+# relative from another's, so it is held to the JAX package's unperturbed
+# solve only for the run as it is
+CONDENSED_REFERENCE = {
+    "float64": ("SOLVE_SUCCEEDED", 83, 184, 1403, 583.722899518331),
+}
+CONDENSED_SPREAD = {"float64": {"iter": (83, 99),
+                                "factorization_cnt": (184, 233),
+                                "backsolve_cnt": (1373, 1767)}}
+# BLOCK_CHOLESKY at the largest flagship size tried at which the JAX
+# package's solve succeeds: of nb = 80, 90, 95-118, 150, 200, 250, 300
+# and 450 it succeeds at 90, 95, 102 and 107 only in 400 iterations, at
+# 600 not in 100 (ROADMAP §C, R3); its one-ulp twins at 107 (tools/
+# spread.py range_space --option bchol --nb 107) all take 48/93/94
+BCHOL_NB = 107
+# HYKKT float32: iterations and factorizations exactly, backsolves within
+# BACKSOLVE_RTOL (the card's twins 25/25/110-111)
+RANGE_SPACE_REFERENCE = {
+    ("hykkt", "float64"): ("SOLVE_SUCCEEDED", 25, 25, 49, 583.723001859435),
+    ("hykkt", "float32"): ("SOLVE_SUCCEEDED", 25, 25, 108, 583.723001859435),
+    ("block_cholesky", "float64"): ("SOLVE_SUCCEEDED", 48, 93, 94,
+                                    79.50522163521751),
+    ("infeasible", "float64"): ("INFEASIBLE_PROBLEM_DETECTED", 8, 8, 8,
+                                0.9999999900025058),
+}
+TIMED_A4_SOLVES = 2
+# K1 then K2's backward error on an A4 band: at most 10× that of the plain
+# factorization and solve, or this
+BACKWARD_TOL = 1e-12
 
 def emit(obj):
     print(json.dumps(obj, default=_plain), flush=True)
@@ -3667,8 +3772,8 @@ def phase_batch_step_options(torch, port):
     and lanes 0, 5, 10 and 15 against the JAX package's float64 single
     solves (BATCH_STEP_JAX); the run repeated, bit for bit, with the
     BATCH_STEP_PROFILED window of its batched steps under torch.profiler
-    for the card's busy share; TIMED_BATCHES more bulk runs, each bit for
-    bit the first, for the median lane-iterations per second."""
+    for the card's busy share; TIMED_OPTION_BATCHES more bulk runs, each
+    bit for bit the first, for the median lane-iterations per second."""
     from madnlp_tpu_torch.models.instances import opf
 
     model = opf.build_sparse(nb=600, seed=0, parametric=True)
@@ -3690,7 +3795,7 @@ def phase_batch_step_options(torch, port):
                                           profiled=prof)
         same = _same_batch(again, summ)
         walls = []
-        for _ in range(TIMED_BATCHES):
+        for _ in range(TIMED_OPTION_BATCHES):
             again, w, _, _, _ = _option_batch(torch, port, model, dtype, opts)
             same = same and _same_batch(again, summ)
             walls.append(w)
@@ -3769,21 +3874,31 @@ def _nl_solve(torch, port, path, dtype, keep=None, **options):
     return stats, time.perf_counter() - t, _all_counts()
 
 
-def _check_counts(what, stats, ref, counts, expect, backsolves=None):
-    """Status, iterations, factorizations and backsolves exactly the JAX
-    package's ``ref`` (backsolves inside ``backsolves``, a one-ulp spread,
-    where given), the objective within OBJ_RTOL, a finite solution; the
-    kernels of ``expect`` ({name: launches}) launched exactly so often and
-    every other kernel and witness never."""
+def _check_counts(what, stats, ref, counts, expect, spread=None,
+                  backsolve_rtol=0.0):
+    """The status exactly the JAX package's ``ref`` and the objective
+    within OBJ_RTOL of it; iterations, factorizations and backsolves
+    exactly (backsolves within ``backsolve_rtol`` relative), or each count
+    named in ``spread`` ({count: (lo, hi)}, a one-ulp spread where
+    rounding moves it) inside its range; a finite solution; the kernels of
+    ``expect`` ({name: launches}) launched exactly so often and every
+    other kernel and witness never."""
     status, iters, facts, backs, obj = ref
     c = stats.counters
-    got = (stats.status.name, stats.iter, c["factorization_cnt"],
-           c["backsolve_cnt"])
-    lo, hi = backsolves or (backs, backs)
-    if got[:3] != (status, iters, facts) or not lo <= got[3] <= hi:
-        raise AssertionError(f"{what}: (status, iter, factorizations, "
-                             f"backsolves) {got}, JAX {ref[:4]}, "
-                             f"backsolves in {(lo, hi)}")
+    got = {"iter": stats.iter, "factorization_cnt": c["factorization_cnt"],
+           "backsolve_cnt": c["backsolve_cnt"]}
+    want = {"iter": iters, "factorization_cnt": facts, "backsolve_cnt": backs}
+    spread = spread or {}
+
+    def held(k, v):
+        if k in spread:
+            return spread[k][0] <= v <= spread[k][1]
+        rtol = backsolve_rtol if k == "backsolve_cnt" else 0.0
+        return abs(v - want[k]) <= rtol * want[k]
+    bad = {k: v for k, v in got.items() if not held(k, v)}
+    if stats.status.name != status or bad:
+        raise AssertionError(f"{what}: status {stats.status.name}, counts "
+                             f"{got}; JAX {ref[:4]}, spread {spread}")
     if abs(stats.objective - obj) > OBJ_RTOL * abs(obj):
         raise AssertionError(f"{what}: objective {stats.objective!r}, "
                              f"JAX {obj!r}")
@@ -3797,8 +3912,8 @@ def _check_counts(what, stats, ref, counts, expect, backsolves=None):
                              f"expected {expect}")
 
 
-def _time_nl_band(torch, st, band):
-    """K1 and K2 on the .nl solve's last band, timed by CUDA events beside
+def _time_band(torch, st, band):
+    """K1 and K2 on a solve's last band, timed by CUDA events beside
     their plain versions and their bounds."""
     from madnlp_tpu_torch.ops import banded as plain
     from madnlp_tpu_torch.ops import banded_kernels as bk
@@ -3926,7 +4041,8 @@ def _nl_checked(torch, port, nl, tmp, text, written):
         _check_counts(f"nl {dtype}", s, ref, counts,
                       {"banded_factorize_cuda": ref[2],
                        "banded_solve_cuda": s.counters["backsolve_cnt"]},
-                      NL_BACKSOLVE_SPREAD.get(dtype))
+                      {"backsolve_cnt": NL_BACKSOLVE_SPREAD[dtype]}
+                      if dtype in NL_BACKSOLVE_SPREAD else None)
         st = kept[dtype]["struct"]
         emit({"phase": "nl_sparse", "dtype": dtype, "n": model.n,
               "nnzh": model.nnzh, "status": s.status.name, "iter": s.iter,
@@ -3987,7 +4103,7 @@ def _nl_timing(torch, port, out):
     model, stats, kept = out.pop("model"), out.pop("stats"), out.pop("kept")
     out["times"], out["bounds"] = {}, {}
     for dt in ("float32", "float64"):
-        times, bounds = _time_nl_band(torch, kept[dt]["struct"],
+        times, bounds = _time_band(torch, kept[dt]["struct"],
                                       kept[dt]["band"])
         out["times"][dt], out["bounds"][dt] = times, bounds
         emit({"phase": "nl_band_timing", "dtype": dt, "ms": times,
@@ -4095,7 +4211,7 @@ def phase_frontends(torch, port):
         expect = ({"dense_ldlt_cuda": s.counters["factorization_cnt"]
                    + seen["least_squares"]} if ldl else {})
         _check_counts(f"frontends {name}", s, ref, counts, expect,
-                      backsolves=(0, float("inf")))
+                      {"backsolve_cnt": (0, float("inf"))})
         k7_total += counts["dense_ldlt_cuda"]
         round_trips = sum(calls.values())
         emit({"phase": "frontends", "run": name, "status": s.status.name,
@@ -4113,19 +4229,24 @@ def phase_frontends(torch, port):
 
 def phase_harness(torch, port):
     """The shipped harness on the card: ``test_linear_solver`` for every
-    dense solver the port has (K7 for LDL), ``test_kkt_system`` on every KKT
-    system it has (banded SPARSE on K1/K2, LDL storage on K7), the whole
-    behavior suite, and ``solve_jitted`` bit for bit ``solve()``."""
+    dense solver the port has (K7 for LDL and for HYKKT's K_γ),
+    ``test_kkt_system`` on every KKT system it has (banded SPARSE,
+    SPARSE_UNREDUCED and SPARSE_CONDENSED on K1/K2, LDL storage and HYKKT
+    on K7), the whole behavior suite, and ``solve_jitted`` bit for bit
+    ``solve()``."""
     import madnlp_tpu_torch.testing as mt
     from madnlp_tpu_torch.models.instances import hs15, sparse_qp
 
     LS, KS = port.LinearSolver, port.KKTSystem
-    for solver in (LS.LDL, LS.CHOLESKY, LS.LU, LS.QR, LS.EVD):
+    for solver in (LS.LDL, LS.CHOLESKY, LS.LU, LS.QR, LS.EVD,
+                   LS.BLOCK_CHOLESKY, LS.HYKKT):
         _reset_all_counts()
         mt.test_linear_solver(solver, device="cuda")
         torch.cuda.synchronize()
         counts = _all_counts()
-        want = {"dense_ldlt_cuda": 1} if solver == LS.LDL else {}
+        # HYKKT factors K_γ with K7 on the card
+        want = ({"dense_ldlt_cuda": 1} if solver in (LS.LDL, LS.HYKKT)
+                else {})
         if {k: v for k, v in counts.items() if v} != want:
             raise AssertionError(f"harness {solver.name}: launches {counts}")
         emit({"phase": "harness", "test_linear_solver": solver.name,
@@ -4141,6 +4262,12 @@ def phase_harness(torch, port):
         "sparse_banded_f32": (qp, KS.SPARSE, LS.BANDED,
                               {"dtype": "float32", "rtol": 1e-5}, "K1K2"),
         "scaled_sparse": (qp, KS.SCALED_SPARSE, LS.BANDED, {}, "K1K2"),
+        "unreduced_banded": (qp, KS.SPARSE_UNREDUCED, LS.BANDED, {}, "K1K2"),
+        "unreduced_dense_model": (None, KS.SPARSE_UNREDUCED, LS.LDL, {},
+                                  "K7"),
+        "condensed_banded": (qp, KS.SPARSE_CONDENSED, LS.BANDED, {}, "K1K2"),
+        "dense_hykkt": (None, KS.DENSE, LS.HYKKT, {}, "K7"),
+        "dense_block_cholesky": (None, KS.DENSE, LS.BLOCK_CHOLESKY, {}, None),
     }
     for name, (build, kkt, lin, opts, kernels) in cases.items():
         _reset_all_counts()
@@ -4176,6 +4303,317 @@ def phase_harness(torch, port):
           "iter": b.iter, "objective": b.objective})
     if not same:
         raise AssertionError("solve_jitted differs from solve()")
+
+# -- 18-20. slice A4: the unreduced and condensed systems, HYKKT, BLOCK_CHOLESKY
+
+
+def _a4_solve(torch, port, model, dtype, keep=None, **opts):
+    """One solve of ``model`` on the card under ``opts`` (model and symbolic
+    set-up excluded from the wall), every kernel's count and HYKKT's CG
+    statistics set to 0 just before it and the Cholesky factorizations
+    (``torch.linalg.cholesky_ex``) counted.  ``keep`` collects the last
+    band K1 factored (``struct``, ``band``) and the last matrix K7 factored
+    (``K``, ``block``).  Returns (stats, wall, kernel counts, CG
+    statistics, Cholesky calls)."""
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+    from madnlp_tpu_torch.ops import dense_solvers as ds
+
+    solver = port.MadNLPSolver(model, device="cuda", dtype=dtype,
+                               print_level=port.PrintLevel.ERROR, **opts)
+    factorize, dense_ldlt = bk.factorize, dk.dense_ldlt
+    cholesky_ex = torch.linalg.cholesky_ex
+    choleskys = [0]
+
+    def keeping(struct, band):
+        keep["struct"], keep["band"] = struct, band.clone()
+        return factorize(struct, band)
+
+    def keeping_dense(A, block=128):
+        keep["K"], keep["block"] = A.clone(), block
+        return dense_ldlt(A, block)
+
+    def counted(*args, **kwargs):
+        choleskys[0] += 1
+        return cholesky_ex(*args, **kwargs)
+    if keep is not None:
+        bk.factorize, dk.dense_ldlt = keeping, keeping_dense
+    torch.linalg.cholesky_ex = counted
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    ds.reset_cg_stats()
+    t = time.perf_counter()
+    try:
+        stats = solver.solve()
+        torch.cuda.synchronize()
+    finally:
+        bk.factorize, dk.dense_ldlt = factorize, dense_ldlt
+        torch.linalg.cholesky_ex = cholesky_ex
+    return (stats, time.perf_counter() - t, _all_counts(), dict(ds.CG_STATS),
+            choleskys[0])
+
+
+def _backward_errors(torch, struct, band):
+    """The normwise backward errors ‖Kx − b‖∞ / (‖K‖∞‖x‖∞ + ‖b‖∞) of one
+    seeded right-hand side solved by K1 then K2, and by the plain
+    factorization then the plain solve, each on its own factor of the
+    same band (K the symmetrized band in float64).  The band's
+    conditioning does not amplify them, so a wrong factor or solve shows
+    as a backward error far above the plain one's."""
+    from madnlp_tpu_torch.ops import banded as plain
+    from madnlp_tpu_torch.ops import banded_kernels as bk
+
+    rhs = torch.as_tensor(np.random.default_rng(7).standard_normal(struct.N),
+                          dtype=band.dtype, device=band.device)
+    kx = bk.solve(struct, bk.factorize(struct, band.clone()), rhs)
+    px = plain.banded_solve(struct, plain.banded_factorize(struct, band), rhs)
+    sym = plain.banded_symmetrize(struct, band).double()
+    ones = torch.ones(struct.N, dtype=torch.float64, device=band.device)
+    norm_k = float(plain.banded_symv(struct, sym.abs(), ones).max())
+    b = rhs.double()
+    out = {}
+    for name, x in (("K1+K2", kx), ("plain", px)):
+        x = x.double()
+        r = plain.banded_symv(struct, sym, x) - b
+        out[name] = float(r.abs().max()
+                          / (norm_k * x.abs().max() + b.abs().max()))
+    return out
+
+
+def _a4_timed(torch, port, what, model_fn, first, opts, dtype="float32"):
+    """TIMED_A4_SOLVES more ``dtype`` solves, each bit for bit ``first``,
+    for the median iter/s (with min and max), and one more under
+    torch.profiler for the card's busy share."""
+    def run():
+        s, wall, _, _, _ = _a4_solve(torch, port, model_fn(), dtype, **opts)
+        if not _same_stats(s, first):
+            raise AssertionError(f"{what}: a repeated {dtype} solve differs")
+        return s.iter, wall
+    walls = [run()[1] for _ in range(TIMED_A4_SOLVES)]
+    med = statistics.median(walls)
+    prof = _profile(torch, port, run=run, host=False)
+    return {"dtype": dtype, "timed_solves": TIMED_A4_SOLVES,
+            "repeats_bit_identical": TIMED_A4_SOLVES + 1, "wall_s": walls,
+            "median_wall_s": med, "iter_per_s_median": first.iter / med,
+            "iter_per_s_min": first.iter / max(walls),
+            "iter_per_s_max": first.iter / min(walls),
+            **{f"profile_{k}": v for k, v in prof.items()}}
+
+
+def _a4_banded_phase(torch, port, phase, opts, ref, spread, least_squares,
+                     dtypes):
+    """The banded phases of slice A4: the flagship model under ``opts`` on
+    K1/K2 in each of ``dtypes``, held to the JAX package (``ref``, or
+    ``spread`` where rounding moves the counts), K1 once per factorization
+    and K2 at least once per backsolve (the least-squares start factors
+    and solves once more where the system takes it); the last dtype's
+    solve timed, each repeat bit for bit the first; K1/K2 against their plain
+    versions on the float64 solve's last band and timed on every dtype's
+    last band beside their bounds.  Returns the float64 launches, errors,
+    times and bounds for the kernels line."""
+    from madnlp_tpu_torch.models.instances import opf
+
+    def model():
+        return opf.build_sparse(nb=A4_NB, seed=0)
+    kept, stats, out = {}, {}, {"times": {}, "bounds": {}}
+    for dtype in dtypes:
+        kept[dtype] = {}
+        s, wall, counts, _, _ = _a4_solve(torch, port, model(), dtype,
+                                          keep=kept[dtype], **opts)
+        c = s.counters
+        k1 = c["factorization_cnt"] + least_squares
+        k2 = counts["banded_solve_cuda"]
+        _check_counts(f"{phase} {dtype}", s, ref[dtype], counts,
+                      {"banded_factorize_cuda": k1, "banded_solve_cuda": k2},
+                      spread.get(dtype),
+                      BACKSOLVE_RTOL if dtype == "float32" else 0.0)
+        if k2 < c["backsolve_cnt"] + least_squares:
+            raise AssertionError(f"{phase} {dtype}: K2 launched {k2} times, "
+                                 f"backsolve_cnt {c['backsolve_cnt']}")
+        st = kept[dtype]["struct"]
+        emit({"phase": phase, "dtype": dtype, "status": s.status.name,
+              "iter": s.iter, "objective": s.objective,
+              "reference": ref[dtype], "spread": spread.get(dtype),
+              "counters": c,
+              "geometry": {"N": st.N, "b": st.b, "bw": st.bw, "nb": st.nb,
+                           "W": st.W},
+              "K1_launches": counts["banded_factorize_cuda"],
+              "K2_launches": k2, "wall_s": wall,
+              "iter_per_s": s.iter / wall})
+        stats[dtype] = s
+        if dtype == "float64":
+            out["launches"] = (counts["banded_factorize_cuda"], k2)
+    last = dtypes[-1]
+    real = {dt: compare_kernels(torch, kept[dt]["struct"], kept[dt]["band"])
+            for dt in dtypes}
+    backward = _backward_errors(torch, kept["float64"]["struct"],
+                                kept["float64"]["band"])
+    # these bands are ill-conditioned at the solution (R3): the two solves
+    # of one right-hand side part by up to 4e-4 relative with the summation
+    # order, and the condensed factor's entries by 1e-4, so K1 then K2 is
+    # held on both bands by its backward error beside that of the plain
+    # factorization and solve; the unreduced factor (1e-17 from plain) is
+    # also held entrywise as everywhere
+    held = (() if phase == "sparse_condensed" else ("band", "invL", "d"))
+    emit({"phase": f"{phase}_band", "float64_max_rel_err":
+          real["float64"]["rel"], "float64_tol": REAL_BAND_RTOL,
+          "held": held, "float64_backward_error": backward,
+          "backward_tol": f"max(10 x plain, {BACKWARD_TOL})",
+          "float32_max_rel_err (reported)": real.get(
+              "float32", {}).get("rel"),
+          "inertia": {dt: r["inertia"] for dt, r in real.items()}})
+    if any(real["float64"]["rel"][k] > REAL_BAND_RTOL for k in held) or \
+            backward["K1+K2"] > max(10.0 * backward["plain"],
+                                    BACKWARD_TOL) or \
+            real["float64"]["inertia"][0] != real["float64"]["inertia"][1]:
+        raise AssertionError(f"{phase}: K1/K2 disagree with plain on the "
+                             f"solve's band")
+    out["worst"] = {"band": real["float64"]["abs"]["band"],
+                    "solve": real["float64"]["abs"]["solve"]}
+    for dt in dtypes:
+        times, bounds = _time_band(torch, kept[dt]["struct"],
+                                   kept[dt]["band"])
+        out["times"][dt], out["bounds"][dt] = times, bounds
+        emit({"phase": f"{phase}_band_timing", "dtype": dt, "ms": times,
+              "bounds": {k: bounds[k] for k in ("K1", "K2")},
+              "K1_share_of_bound": bounds["K1"]["bound_ms"] / times["K1"],
+              "K2_share_of_bound": bounds["K2"]["bound_ms"] / times["K2"],
+              "K1_launches_per_solve": stats[dt].counters[
+                  "factorization_cnt"] + least_squares})
+    # the repeats: each timed solve is held bit for bit to the first
+    emit({"phase": f"{phase}_timing",
+          **_a4_timed(torch, port, phase, model, stats[last], opts, last)})
+    return out
+
+
+def phase_sparse_unreduced(torch, port):
+    """The flagship model under SPARSE_UNREDUCED on K1/K2 (N = 3·nw + m)
+    in float64 and float32; the least-squares start factors and solves
+    once more."""
+    opts = {"kkt_system": port.KKTSystem.SPARSE_UNREDUCED,
+            "linear_solver": port.LinearSolver.BANDED}
+    return _a4_banded_phase(torch, port, "sparse_unreduced", opts,
+                            UNREDUCED_REFERENCE, UNREDUCED_SPREAD, 1,
+                            ("float64", "float32"))
+
+
+def phase_sparse_condensed(torch, port):
+    """The flagship model under SPARSE_CONDENSED on K1/K2 (the n×n SPD
+    band) in float64, at the tolerance of the JAX package's tests of this
+    system; its counts held to their one-ulp spread (ROADMAP §C, R3).
+    Float32 is not run: the JAX package's float32 condensed solve reaches
+    no solution (ROADMAP §C, R3)."""
+    opts = {"kkt_system": port.KKTSystem.SPARSE_CONDENSED,
+            "linear_solver": port.LinearSolver.BANDED, "tol": CONDENSED_TOL}
+    return _a4_banded_phase(torch, port, "sparse_condensed", opts,
+                            CONDENSED_REFERENCE, CONDENSED_SPREAD, 0,
+                            ("float64",))
+
+
+def _infeasible_model(port, torch):
+    """The one-variable infeasible model of tests/test_config_matrix.py."""
+    return port.create_model(
+        obj=lambda x: x[0], cons=lambda x: torch.stack([x[0]]),
+        n=1, m=1, x0=[0.0], lvar=[1.0], lcon=[0.0], ucon=[0.5])
+
+
+def phase_range_space(torch, port):
+    """The dense flagship under DENSE with HYKKT (K_γ through K7, the
+    card's default backend; float64 and float32) and BLOCK_CHOLESKY
+    (float64), and the infeasible model under DENSE + HYKKT (its robust
+    steps in the ``rr`` mode), each held to the JAX package; HYKKT's K7
+    launches (one per factorization and one for the least-squares start),
+    no Cholesky under HYKKT, the CG's iterations per backsolve and host
+    reads per iteration; K7 against its plain version on the float32
+    solve's last K_γ and timed there beside its bound; the timed float32
+    solves, each bit for bit the first."""
+    from madnlp_tpu_torch.models.instances import opf
+    from madnlp_tpu_torch.ops import dense_kernels as dk
+    from madnlp_tpu_torch.ops.ldlt import ldlt_inertia, pad_identity
+
+    def model():
+        return opf.build(nb=A4_NB, seed=0)
+    hykkt = {"kkt_system": port.KKTSystem.DENSE,
+             "linear_solver": port.LinearSolver.HYKKT}
+    out, stats, kept = {}, {}, {}
+    runs = [("hykkt", "float64", model, hykkt),
+            ("hykkt", "float32", model, hykkt),
+            ("block_cholesky", "float64",
+             lambda: opf.build(nb=BCHOL_NB, seed=0),
+             {"kkt_system": port.KKTSystem.DENSE,
+              "linear_solver": port.LinearSolver.BLOCK_CHOLESKY}),
+            ("infeasible", "float64", lambda: _infeasible_model(port, torch),
+             hykkt)]
+    for name, dtype, build, opts in runs:
+        keep = kept.setdefault(dtype, {}) if name == "hykkt" else None
+        s, wall, counts, cg, chol = _a4_solve(torch, port, build(), dtype,
+                                              keep=keep, **opts)
+        c = s.counters
+        expect = ({} if name == "block_cholesky"
+                  else {"dense_ldlt_cuda": c["factorization_cnt"] + 1})
+        _check_counts(f"range_space {name} {dtype}", s,
+                      RANGE_SPACE_REFERENCE[(name, dtype)], counts, expect,
+                      None,
+                      BACKSOLVE_RTOL if dtype == "float32" else 0.0)
+        if name != "block_cholesky" and chol:
+            raise AssertionError(f"range_space {name} {dtype}: {chol} "
+                                 f"Cholesky calls under hykkt_backend='ldl'")
+        emit({"phase": "range_space", "run": name, "dtype": dtype,
+              "status": s.status.name, "iter": s.iter,
+              "objective": s.objective,
+              "reference": RANGE_SPACE_REFERENCE[(name, dtype)],
+              "counters": c, "K7_launches": counts["dense_ldlt_cuda"],
+              "cholesky_calls": chol, "cg": cg,
+              "cg_iterations_per_backsolve": cg["iterations"]
+              / max(c["backsolve_cnt"], 1),
+              "cg_iterations_per_cg_solve": cg["iterations"]
+              / max(cg["solves"], 1),
+              "host_reads_per_cg_iteration": cg["host_reads"]
+              / max(cg["iterations"], 1),
+              "wall_s": wall, "iter_per_s": s.iter / wall})
+        stats[(name, dtype)] = s
+        if (name, dtype) == ("hykkt", "float32"):
+            out["launches"] = counts["dense_ldlt_cuda"]
+    first = stats[("hykkt", "float32")]
+    # K7 on the float32 solve's last K_γ (its op path: counts from 0 just
+    # before, one launch read just after), against its plain version, timed
+    K32, block = kept["float32"]["K"], kept["float32"]["block"]
+    dk.reset_counts()
+    kf = dk.dense_ldlt(K32, block)
+    torch.cuda.synchronize()
+    if dk.counts()["dense_ldlt_cuda"] != 1:
+        raise AssertionError(f"K7 on K_γ: launches {dk.counts()}")
+    pf = dk.dense_ldlt_plain(K32, block)
+    kf64, pf64 = dk.dense_ldlt(K32.double(), block), dk.dense_ldlt_plain(
+        K32.double(), block)
+    torch.cuda.synchronize()
+    rel64, abs64 = _factor_errors(torch, kf64, pf64)
+    rel32, _ = _factor_errors(torch, kf, pf)
+    inertia = {"float32": [ldlt_inertia(f) for f in (kf, pf)],
+               "float64": [ldlt_inertia(f) for f in (kf64, pf64)]}
+    padded = pad_identity(K32, block).contiguous()
+    work = torch.empty_like(padded)
+    times = {"K7": _time_events(
+        torch, lambda: dk.dense_ldlt_cuda(work, block),
+        lambda: work.copy_(padded), 10),
+        "K7_plain": _time_events(
+            torch, lambda: dk.dense_ldlt_plain(K32, block), lambda: None, 1)}
+    bound = _dense_bound(padded.shape[0], K32.element_size(), "float32")
+    emit({"phase": "range_space_kgamma", "N": K32.shape[0],
+          "Np": padded.shape[0], "block": block,
+          "float64_max_rel_err": rel64, "float64_tol": DENSE_MAIN_RTOL,
+          "float32_max_rel_err (reported)": rel32, "inertia": inertia,
+          "ms": times, "bound": bound,
+          "K7_share_of_bound": bound["bound_ms"] / times["K7"],
+          "K7_launches_per_solve": out["launches"]})
+    if max(rel64.values()) > DENSE_MAIN_RTOL or \
+            len(set(inertia["float64"])) != 1:
+        raise AssertionError("range_space: K7 and plain disagree on K_γ")
+    emit({"phase": "range_space_timing",
+          **_a4_timed(torch, port, "range_space", model, first, hykkt)})
+    out.update(worst=max(abs64.values()), times=times, bound=bound)
+    return out
+
 
 def _options(port, opts):
     """Option names as the port's enums (``"BarrierUpdate.LOQO"``)."""
@@ -4238,6 +4676,9 @@ def main():
     nl_path = timed(phase_nl_sparse)
     timed(phase_frontends)
     timed(phase_harness)
+    unreduced = timed(phase_sparse_unreduced)
+    condensed = timed(phase_sparse_condensed)
+    range_space = timed(phase_range_space)
 
     kernels = []
     for path, i, name, key, errs, line in (
@@ -4340,6 +4781,41 @@ def main():
             "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
             "library_ms": None,
         })
+    # K1 and K2 on the A4 systems' bands at nb=600 (the unreduced 4-block
+    # system, N = 3·nw + m; the condensed n×n SPD band), every field from
+    # the float64 solve: its launches, the error against plain on its last
+    # band, the times and bounds there (the condensed factor's error is
+    # reported; that band holds K1 then K2 by their backward error)
+    for path, system in ((unreduced, "unreduced"),
+                         (condensed, "condensed, held by backward error")):
+        for i, (name, key, line) in enumerate((
+                ("banded_factorize_cuda", "K1", 314),
+                ("banded_solve_cuda", "K2", 597))):
+            t, b = path["times"]["float64"], path["bounds"]["float64"]
+            kernels.append({
+                "name": f"{name} ({system} band, float64)", "route": "cuda",
+                "source": "madnlp_tpu_torch/csrc/banded_ldlt.cu",
+                "replaces": f"madnlp_tpu/ops/pallas_banded_stream.py:{line}",
+                "launches": path["launches"][i],
+                "max_abs_err": path["worst"]["band" if key == "K1"
+                                             else "solve"],
+                "ms": t[key], "plain_ms": t[key + "_plain"],
+                "bound_ms": b[key]["bound_ms"], "bound_by": b[key]["bound_by"],
+                "library_ms": None,
+            })
+    # K7 on HYKKT's K_γ (nw × nw) of the dense nb=600 solve in float32: the
+    # solve's launches, the float64 error against plain on its last K_γ
+    kernels.append({
+        "name": "dense_ldlt_cuda (HYKKT K_gamma, float32)", "route": "cuda",
+        "source": "madnlp_tpu_torch/csrc/dense_ldlt.cu",
+        "replaces": "madnlp_tpu/ops/pallas_ldlt.py:132",
+        "launches": range_space["launches"],
+        "max_abs_err": range_space["worst"],
+        "ms": range_space["times"]["K7"],
+        "plain_ms": range_space["times"]["K7_plain"],
+        "bound_ms": range_space["bound"]["bound_ms"],
+        "bound_by": range_space["bound"]["bound_by"], "library_ms": None,
+    })
     t32, b32 = main_matrix["times"]["float32"], main_matrix["bounds"]["float32"]
     kernels.append({
         "name": "dense_ldlt_cuda", "route": "cuda",

@@ -28,7 +28,8 @@ import torch
 
 from ..kkt.condensed_dense import DenseCondensedKKT
 from ..kkt.dense import DenseKKT
-from ..kkt.sparse import SparseKKT
+from ..kkt.sparse import SparseCondensedKKT, SparseKKT
+from ..kkt.unreduced import DenseUnreducedKKT, SparseUnreducedKKT
 from ..ops.banded import kkt_interleaved_ordering
 from ..utils import log as logfmt
 from ..utils.options import (
@@ -46,6 +47,16 @@ from .state import BatchState, State, split_lanes, stack_lanes
 from .step import Kernel
 
 _ACTIVE = (int(Status.REGULAR), int(Status.RESTORE), int(Status.ROBUST))
+
+# kkt_system -> (class for a sparse-callback model, class for a dense one);
+# a sparse model under DENSE / DENSE_CONDENSED is densified first
+_KKT_CLASSES = {
+    KKTSystem.SPARSE: (SparseKKT, DenseKKT),
+    KKTSystem.SPARSE_CONDENSED: (SparseCondensedKKT, DenseCondensedKKT),
+    KKTSystem.SPARSE_UNREDUCED: (SparseUnreducedKKT, DenseUnreducedKKT),
+    KKTSystem.DENSE: (DenseKKT, DenseKKT),
+    KKTSystem.DENSE_CONDENSED: (DenseCondensedKKT, DenseCondensedKKT),
+}
 
 
 def _later(what: str):
@@ -100,10 +111,10 @@ class MadNLPSolver:
                                        kkt_scaling="k25")
         resolved = opts.resolve(dense_callback=model.is_dense, m=model.m)
         kkt_sys = resolved.kkt_system
-        dense_kkt = kkt_sys in (KKTSystem.DENSE, KKTSystem.DENSE_CONDENSED)
-        if not (dense_kkt or kkt_sys == KKTSystem.SPARSE):
+        if kkt_sys not in _KKT_CLASSES:
             raise _later(f"kkt_system={kkt_sys}")
-        if dense_kkt and not model.is_dense:
+        if kkt_sys in (KKTSystem.DENSE, KKTSystem.DENSE_CONDENSED) \
+                and not model.is_dense:
             # dense KKT systems consume the densified sparse model
             model = model.to_dense()
         self.model = model
@@ -120,18 +131,17 @@ class MadNLPSolver:
             # otherwise LDLᵀ; large sparse systems with a narrow band ->
             # the banded sparse direct factorization
             lin = (LinearSolver.CHOLESKY
-                   if kkt_sys == KKTSystem.DENSE_CONDENSED and p.n_eq == 0
-                   else LinearSolver.LDL)
-            if p.is_sparse:
+                   if kkt_sys in (KKTSystem.DENSE_CONDENSED,
+                                  KKTSystem.SPARSE_CONDENSED)
+                   and p.n_eq == 0 else LinearSolver.LDL)
+            if p.is_sparse and kkt_sys in (KKTSystem.SPARSE,
+                                           KKTSystem.SPARSE_CONDENSED,
+                                           KKTSystem.SPARSE_UNREDUCED):
                 lin = self._sparse_preset(lin)
             self.opts = dataclasses.replace(self.opts, linear_solver=lin)
-        if p.is_sparse:
-            kkt = SparseKKT(p, self.opts)
-        elif kkt_sys == KKTSystem.DENSE_CONDENSED:
-            kkt = DenseCondensedKKT(p, self.opts)
-        else:
-            # dense callbacks use dense storage for the SPARSE system too
-            kkt = DenseKKT(p, self.opts)
+        # the JAX package's class table (ipm/solver.py:153-176): a dense-
+        # callback model takes dense storage for the sparse systems too
+        kkt = _KKT_CLASSES[kkt_sys][not p.is_sparse](p, self.opts)
         if p.is_sparse and self.opts.hessian_approximation in (
                 HessianApproximation.BFGS, HessianApproximation.DAMPED_BFGS):
             raise NotImplementedError(
@@ -344,14 +354,18 @@ class MadNLPSolver:
         GMRES refinement and the K2.5 scaling.
 
         Returns the final :class:`BatchState` in the original lane order;
-        summary arrays via :func:`batch_summary`.  ``sharding`` and dense
-        KKT storage raise NotImplementedError (later slices of the
-        port)."""
+        summary arrays via :func:`batch_summary`.  ``sharding``, dense KKT
+        storage and the condensed and unreduced systems raise
+        NotImplementedError (later slices of the port)."""
         if sharding is not None:
             raise _later("sharding= (a multi-device solve_batch)")
-        if not getattr(self.kernel.kkt, "banded", False):
-            raise _later("solve_batch with dense KKT storage or a "
-                         "dense-callback model")
+        kkt = self.kernel.kkt
+        if type(kkt) is not SparseKKT or not kkt.banded:
+            raise _later(f"solve_batch on kkt_system="
+                         f"{self.opts.kkt_system.name} with "
+                         f"linear_solver={self.opts.linear_solver.name} "
+                         f"(A4b: dense KKT storage, a dense-callback model, "
+                         f"the condensed and unreduced systems)")
         theta = torch.as_tensor(np.asarray(params_batch, dtype=np.float64),
                                 device=self.device)
         B = int(theta.shape[0])

@@ -10,7 +10,10 @@ Eliminates both the bound duals *and* the slack/inequality rows:
 
 of size n + n_eq.  Without equality rows K_cond is symmetric positive
 definite after regularization, so Cholesky applies and its success is the
-inertia test; with them the solver's preset is LDLᵀ.
+inertia test (BLOCK_CHOLESKY and HYKKT become Cholesky there); with them
+the solver's preset is LDLᵀ, and the range-space solvers split the matrix
+at n.  A dense-callback model takes this class for ``SPARSE_CONDENSED``
+too.
 
 Inertia rule: ``num_zero == 0 && num_neg == n_eq`` (condensed.jl:189-191).
 """
@@ -37,6 +40,12 @@ class DenseCondensedKKT(DenseKKT):
                            else LinearSolver.CHOLESKY)
         self._eq = torch.as_tensor(self.eq_sel, device=self.device)
         self._sel = torch.as_tensor(prob.slack_sel, device=self.device)
+
+    def _split(self):
+        """The condensed matrix ``[W̃ Aₑᵀ; Aₑ Σd]`` splits at n."""
+        if self.solver in (LinearSolver.BLOCK_CHOLESKY, LinearSolver.HYKKT):
+            return self.prob.n
+        return None
 
     # -- assembly + factorization -----------------------------------------
 
@@ -68,7 +77,8 @@ class DenseCondensedKKT(DenseKKT):
             Kc = W
         return KKTContext(
             hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag, reg=reg,
-            dl=dl, du_=du_, zl=zl, zu=zu, factor=self._factorize_matrix(Kc),
+            dl=dl, du_=du_, zl=zl, zu=zu,
+            factor=self._factorize_matrix(Kc, split=self._split(), rr=rr),
         )
 
     def sys_size(self) -> int:

@@ -15,9 +15,11 @@ factorization, with the bound duals eliminated and recovered analytically
 ``du = xu - x``.  The matrix is equilibrated by a congruence D·K·D, which
 keeps the inertia: 3 Ruiz sweeps (``kkt_scaling="ruiz"``), the analytic
 √Ξ scaling of the K2.5 formulation (``"k25"``) or none; cast to
-``opts.dtype`` and factored by :mod:`..ops.dense_solvers`; the refinement
-operator stays float64, and so does the refinement: Richardson, or GMRES
-(``iterator="gmres"``, :func:`..ops.refine.solve_gmres`).
+``opts.dtype`` and factored by :mod:`..ops.dense_solvers` (the
+range-space solvers BLOCK_CHOLESKY and HYKKT split it at nw and read the
+robust-restoration flag ``rr``); the refinement operator stays float64,
+and so does the refinement: Richardson, or GMRES (``iterator="gmres"``,
+:func:`..ops.refine.solve_gmres`).
 
 Under compact L-BFGS on a sparse KKT system the factored matrix carries
 only the Hessian's diagonal; :meth:`DenseKKT._attach_smw` adds the
@@ -115,12 +117,16 @@ class DenseKKT:
 
     # -- dense storage: equilibrate and factorize ---------------------------
 
-    def _factorize_matrix(self, K, d_analytic=None):
+    def _factorize_matrix(self, K, d_analytic=None, split=None, rr=False):
         """Factorize D·K·D, the scaled matrix in ``opts.dtype``, with D by
         ``opts.kkt_scaling``: ``"k25"`` takes ``d_analytic``, the K2.5
         scaling the KKT system supplies (a system that supplies none is
         not scaled); ``"ruiz"`` 3 Ruiz sweeps (d ← d/√(row-inf-norm); zero
-        rows keep d = 1); anything else none."""
+        rows keep d = 1); anything else none.  ``split`` (the primal block's
+        size) and ``rr`` (the robust-restoration system) reach the
+        range-space solvers, BLOCK_CHOLESKY and HYKKT; HYKKT's γ is
+        ``opts.hykkt_gamma``, by default 1e4 for a float64 factor and 1e3
+        for float32."""
         mode = self.opts.kkt_scaling
         d = K.new_ones(K.shape[0])
         if mode == "k25" and d_analytic is not None:
@@ -131,10 +137,27 @@ class DenseKKT:
                 d = torch.where(r > 0.0, d / torch.sqrt(torch.clamp_min(r, 1e-32)),
                                 1.0)
         Kf = (K * (d[:, None] * d[None, :])).to(self.fact_dtype)
+        gamma = self.opts.hykkt_gamma
+        if gamma is None:
+            gamma = 1e4 if self.fact_dtype == torch.float64 else 1e3
         inner = ds.factorize(Kf, self.solver,
                              block=self.opts.ldl_block_size or 64,
-                             solve_mode=self.solve_mode)
+                             solve_mode=self.solve_mode, split=split, rr=rr,
+                             gamma=gamma, cg_tol=self.opts.hykkt_cg_tol,
+                             cg_maxiter=self.opts.hykkt_cg_maxiter,
+                             hykkt_backend=self._hykkt_backend())
         return EquilibratedFactor(inner=inner, d=d)
+
+    def _split(self):
+        """Primal/dual block boundary for the range-space factorizations."""
+        if self.solver in (LinearSolver.BLOCK_CHOLESKY, LinearSolver.HYKKT):
+            return self.prob.nw
+        return None
+
+    def _hykkt_backend(self) -> str:
+        """``opts.hykkt_backend``, or by the device: ``"ldl"`` (K_γ through
+        K7) on the card, ``"native"`` (``cholesky_ex``) on the CPU."""
+        return ds.resolve_hykkt_backend(self.opts.hykkt_backend, self.device)
 
     def _k25_scaling(self, dl, du_, size_dual: int):
         """√Ξ over the primal block, 1 over the dual block
@@ -212,9 +235,13 @@ class DenseKKT:
         start), as the JAX package's template."""
         N = self.sys_size()
         factor = EquilibratedFactor(
-            inner=ds.zero_factor(self.solver, N, self.fact_dtype,
-                                 block=self.opts.ldl_block_size or 64,
-                                 solve_mode=self.solve_mode, device=self.device),
+            inner=ds.zero_factor(
+                self.solver, N, self.fact_dtype,
+                block=self.opts.ldl_block_size or 64,
+                solve_mode=self.solve_mode, device=self.device,
+                split=self._split(), hykkt_backend=self._hykkt_backend(),
+                cg_tol=self.opts.hykkt_cg_tol,
+                cg_maxiter=self.opts.hykkt_cg_maxiter),
             d=torch.ones(N, dtype=torch.float64, device=self.device))
         return self._zero_ctx(factor)
 
@@ -358,7 +385,8 @@ class DenseKKT:
             dl=dl, du_=du_, zl=zl, zu=zu,
             factor=self._factorize_matrix(
                 K, self._k25_scaling(dl, du_, m)
-                if self.opts.kkt_scaling == "k25" else None),
+                if self.opts.kkt_scaling == "k25" else None,
+                split=self._split(), rr=rr),
         )
 
     # -- operator application (for iterative refinement) -------------------

@@ -1,6 +1,7 @@
-"""Sparse-callback reduced augmented KKT system — port of
-``madnlp_tpu/kkt/sparse.py:SparseKKT``: the banded sparse direct path and
-the dense-storage branch that every other linear solver takes.
+"""Sparse-callback KKT systems — port of ``madnlp_tpu/kkt/sparse.py``:
+:class:`SparseKKT`, the reduced augmented system (the banded sparse direct
+path and the dense-storage branch that every other linear solver takes),
+and :class:`SparseCondensedKKT`, the Lifted-KKT condensed system.
 
 Banded (``linear_solver=BANDED``).  Per factorization: one deterministic
 assembly of the raw f64 band from the COO values ``[pr_diag, du_diag, jac,
@@ -17,11 +18,13 @@ the low-rank part by SMW (:meth:`.dense.DenseKKT._attach_smw`, whose
 2p-column backsolve is one launch of K2 with k = 2p).  ``kkt_scaling="k25"``
 takes the analytic √Ξ scaling in place of Ruiz on either storage.
 
-Dense storage (``LDL``, ``CHOLESKY``, ``LU``, ``QR``, ``EVD``): the same
-COO values are assembled into one dense (nw+m, nw+m) matrix and factored
-by :class:`.dense.DenseKKT`'s path (JAX ``kkt/sparse.py:594-610``); this is
-where the sparse preset's LDL fallback for small systems lands.  The
-refinement operator is the sparse products.
+Dense storage (``LDL``, ``CHOLESKY``, ``LU``, ``QR``, ``EVD``,
+``BLOCK_CHOLESKY``, ``HYKKT``): the same COO values are assembled into one
+dense (nw+m, nw+m) matrix and factored by :class:`.dense.DenseKKT`'s path
+(JAX ``kkt/sparse.py:594-610``, with the primal/dual split and the
+robust-restoration flag for the range-space solvers); this is where the
+sparse preset's LDL fallback for small systems lands.  The refinement
+operator is the sparse products.
 
 Every COO assembly and product is a gather-sum over host-built
 contributor tables (:mod:`..ops.segment`), deterministic on every device;
@@ -44,6 +47,7 @@ from ..ops import banded_kernels
 from ..ops.banded import (
     BandStructure,
     banded_inertia,
+    jtdj_pair_map,
     banded_symmetrize,
     banded_symv,
     kkt_interleaved_ordering,
@@ -72,6 +76,11 @@ def _lowrank_corr(lr: LowRankHessian, v):
 
 class SparseKKT(DenseKKT):
     """Reduced augmented KKT with banded assembly from sparse callbacks."""
+
+    # the assembled band is the augmented system [W+Σ Jᵀ; J D]: its f64 copy
+    # is the refinement operator (banded_symv); a system whose band holds
+    # another matrix (condensed, unreduced) refines with the sparse products
+    _band_is_augmented = True
 
     def __init__(self, prob, opts):
         super().__init__(prob, opts)
@@ -121,31 +130,47 @@ class SparseKKT(DenseKKT):
 
     # -- dense storage -------------------------------------------------------
 
-    def _init_dense_assembly(self):
-        """Gather map of the dense (N, N) matrix from the value vector
-        ``[pr_diag, du_diag, jac, jac, hess, hess_off]``: both triangles of
-        the Jacobian block, the Hessian's lower entries and their mirrors."""
+    def _dense_pattern(self):
+        """(rows, cols, N) of the dense matrix, both triangles, in the order
+        of the value vector ``[pr_diag, du_diag, jac, jac, hess,
+        hess_off]``: the Jacobian block and its mirror, the Hessian's lower
+        entries and the mirrors of its off-diagonal ones."""
         p = self.prob
         N = p.nw + p.m
         diag = np.arange(N, dtype=np.int64)
         jr = p.nw + np.asarray(p.jac_rows_aug)
         jc = np.asarray(p.jac_cols_aug)
         hr, hc = self._hess_pattern()
-        off = np.flatnonzero(hr != hc)
+        off = self._h_off_np
         rows = np.concatenate([diag, jr, jc, hr, hc[off]])
         cols = np.concatenate([diag, jc, jr, hc, hr[off]])
+        return rows, cols, N
+
+    def _init_dense_assembly(self):
+        """Gather map of the dense (N, N) matrix from its value vector
+        (:meth:`_dense_pattern`): the distinct positions and, for each, a
+        padded row of its contributors."""
+        hr, hc = self._hess_pattern()
+        self._h_off_np = np.flatnonzero(hr != hc)
+        self._h_off = torch.as_tensor(self._h_off_np, device=self.device)
+        rows, cols, N = self._dense_pattern()
         flat, inv = np.unique(rows * N + cols, return_inverse=True)
+        self._dense_n = N
         self._dense_flat = torch.as_tensor(flat, device=self.device)
         self._dense_table = torch.as_tensor(
             segment_map(inv.ravel(), len(flat)), device=self.device)
-        self._h_off = torch.as_tensor(off, device=self.device)
 
-    def _assemble_dense(self, pr_diag, du_diag, jac, hess):
-        N = self.prob.nw + self.prob.m
-        vals = torch.cat([pr_diag, du_diag, jac, jac, hess, hess[self._h_off]])
+    def _assemble_dense_values(self, vals):
+        """The dense (N, N) matrix of the value vector of
+        :meth:`_dense_pattern`, duplicates summed in a fixed order."""
+        N = self._dense_n
         K = vals.new_zeros(N * N)
         K[self._dense_flat] = segment_sum(vals, self._dense_table)
         return K.reshape(N, N)
+
+    def _assemble_dense(self, pr_diag, du_diag, jac, hess):
+        return self._assemble_dense_values(
+            torch.cat([pr_diag, du_diag, jac, jac, hess, hess[self._h_off]]))
 
     # -- block-banded backend ----------------------------------------------
 
@@ -201,6 +226,8 @@ class SparseKKT(DenseKKT):
             d = vals.new_ones(lead + (bs.N,))
             d_perm = vals.new_ones(lead + (bs.nbp, bs.b))
         band = scale_band(bs, raw, d_perm).to(self.fact_dtype)
+        if not self._band_is_augmented:
+            raw_sym = None
         if active is None:
             inner = banded_kernels.factorize(bs, band)
             return EquilibratedFactor(inner=inner, d=d, opband=raw_sym)
@@ -300,7 +327,8 @@ class SparseKKT(DenseKKT):
             if active is not None:
                 raise _later("batched dense KKT storage")
             K = self._assemble_dense(pr_diag, du_diag, jac, hv)
-            factor = self._factorize_matrix(K, d_k25)
+            factor = self._factorize_matrix(K, d_k25, split=self._split(),
+                                            rr=rr)
         else:
             vals = torch.cat([pr_diag, du_diag, jac, hv], -1)
             factor = self._banded_factorize_coo(
@@ -326,13 +354,14 @@ class SparseKKT(DenseKKT):
     # -- operator ----------------------------------------------------------
 
     def mul(self, ctx: KKTContext, v: KKTVec) -> KKTVec:
-        """w = K v with the *unreduced* operator: on the banded path the
-        augmented product comes from the stored f64 operator band, the
-        Σ/bound-dual terms corrected elementwise; with dense storage from
-        the sparse products."""
+        """w = K v with the *unreduced* operator: on the banded path of the
+        augmented system the augmented product comes from the stored f64
+        operator band, the Σ/bound-dual terms corrected elementwise; with
+        dense storage, and for a band that holds another matrix, from the
+        sparse products."""
         p = self.prob
         lb, ub = self.lb, self.ub
-        if not self.banded:
+        if not (self.banded and self._band_is_augmented):
             return self._mul_sparse(ctx, v)
         vfull = torch.cat([v.xp, v.y], -1)
         kv = banded_symv(self.bstruct, ctx.factor.opband,
@@ -374,3 +403,140 @@ class SparseKKT(DenseKKT):
         ht = self.hess_mul(ctx.hess, t[..., : p.n])
         return (torch.cat([ht, ht.new_zeros(ht.shape[:-1] + (p.nw - p.n,))],
                           -1) + t * ctx.pr_diag)
+
+
+class SparseCondensedKKT(SparseKKT):
+    """Lifted-KKT condensed system ``K = W + Σx + JᵀDJ`` (n×n) with the
+    pair-map JᵀDJ assembly — port of ``madnlp_tpu/kkt/sparse.py:
+    SparseCondensedKKT`` (the reference's ``SparseCondensedKKTSystem``,
+    src/KKT/Sparse/condensed.jl; solve src/IPM/factorization.jl:143-167).
+
+    Every constraint must carry a slack (all-inequality: the RELAX preset
+    that ``MadNLPOptions.resolve`` sets for ``SPARSE_CONDENSED``).  The
+    pair map has one record per ordered pair of model Jacobian entries
+    sharing a row (``ops/banded.py:jtdj_pair_map``); ``K[r, c] +=
+    D[k]·J[a]·J[b]`` is a segment sum over it.  The band keeps one record
+    per unordered pair (``a ≤ b``); a pair of distinct records in one
+    column lands on the diagonal, which the band's symmetrization never
+    mirrors, so it counts twice.  The band is ordered by plain RCM (K is
+    SPD), and the refinement operator is the sparse products of the
+    augmented system.  BLOCK_CHOLESKY and HYKKT become CHOLESKY (no dual
+    block).  Inertia rule: ``num_zero == 0 && num_neg == 0``."""
+
+    _band_is_augmented = False   # the band holds the n×n condensed matrix
+
+    def __init__(self, prob, opts):
+        if prob.n_eq:
+            raise ValueError(
+                "SparseCondensedKKT requires all constraints to be "
+                "inequalities (use equality_treatment=RELAX / the "
+                "SPARSE_CONDENSED preset)")
+        super().__init__(prob, opts)
+        if self.solver in (LinearSolver.BLOCK_CHOLESKY, LinearSolver.HYKKT):
+            # the condensed matrix is plain SPD (no dual block)
+            self.solver = LinearSolver.CHOLESKY
+        p, dev = prob, self.device
+        jr = np.asarray(p.model.jac_rows, dtype=np.int64)
+        jc = np.asarray(p.model.jac_cols, dtype=np.int64)
+        self.nnz_jac = len(jr)     # model entries (before the slack tail)
+        # Jᵀ·buffer by column, J·dx by row (the JAX package's scatter-adds)
+        self._mjt_table = torch.as_tensor(segment_map(jc, p.n), device=dev)
+        self._mjp_table = torch.as_tensor(segment_map(jr, p.m), device=dev)
+
+    def _pair_map(self):
+        p = self.prob
+        if not hasattr(self, "_pairs"):
+            self._pairs = jtdj_pair_map(np.asarray(p.model.jac_rows),
+                                        np.asarray(p.model.jac_cols), p.m)
+        return self._pairs
+
+    def _split(self):
+        return None
+
+    def _band_ordering(self):
+        return None   # the condensed matrix is SPD: plain RCM is stable
+
+    def _band_pattern(self):
+        """Lower-COO pattern of K = W + Σx + JᵀDJ in the order of the value
+        vector ``[pr_diag[:n], hess, pairs]``, one pair record per
+        unordered pair."""
+        p, dev = self.prob, self.device
+        pr, pc, pa, pb, pk = self._pair_map()
+        keep = pa <= pb
+        self.bpair_a = torch.as_tensor(pa[keep], device=dev)
+        self.bpair_b = torch.as_tensor(pb[keep], device=dev)
+        self.bpair_k = torch.as_tensor(pk[keep], device=dev)
+        dup_diag = (pr[keep] == pc[keep]) & (pa[keep] != pb[keep])
+        self.bpair_w = torch.as_tensor(np.where(dup_diag, 2.0, 1.0),
+                                       device=dev)
+        diag = np.arange(p.n, dtype=np.int64)
+        hr, hc = self._hess_pattern()
+        return (np.concatenate([diag, hr, pr[keep]]),
+                np.concatenate([diag, hc, pc[keep]]), p.n)
+
+    def _dense_pattern(self):
+        """(rows, cols, N) of the dense n×n matrix in the order of the
+        value vector ``[pr_diag[:n], hess, hess_off, pairs]`` (every
+        ordered pair record at its own position)."""
+        p, dev = self.prob, self.device
+        pr, pc, pa, pb, pk = self._pair_map()
+        self.pair_a = torch.as_tensor(pa, device=dev)
+        self.pair_b = torch.as_tensor(pb, device=dev)
+        self.pair_k = torch.as_tensor(pk, device=dev)
+        diag = np.arange(p.n, dtype=np.int64)
+        hr, hc = self._hess_pattern()
+        off = self._h_off_np
+        return (np.concatenate([diag, hr, hc[off], pr]),
+                np.concatenate([diag, hc, hr[off], pc]), p.n)
+
+    def sys_size(self) -> int:
+        return self.prob.n
+
+    def _diag_buffer(self, pr_diag, du_diag):
+        """D = Σs / (1 − Σd Σs) over the rows (all are inequalities)."""
+        sigma_s = pr_diag[self.prob.n:]
+        return sigma_s / (1.0 - du_diag * sigma_s)
+
+    def build_and_factorize(self, hess, jac, reg, du_diag, dl, du_, zl, zu,
+                            rr: bool = False):
+        p = self.prob
+        pr_diag, du_diag = self.aug_diagonals(reg, du_diag, dl, du_, zl, zu)
+        D = self._diag_buffer(pr_diag, du_diag)
+        jv = jac[: self.nnz_jac]      # model entries; the slack tail is in D
+        lowrank = isinstance(hess, LowRankHessian)
+        hv = hess.diag if lowrank else hess
+        if self.banded:
+            w = (self.bpair_w * D[self.bpair_k] * jv[self.bpair_a]
+                 * jv[self.bpair_b])
+            factor = self._banded_factorize_coo(
+                torch.cat([pr_diag[: p.n], hv, w]))
+        else:
+            w = D[self.pair_k] * jv[self.pair_a] * jv[self.pair_b]
+            factor = self._factorize_matrix(self._assemble_dense_values(
+                torch.cat([pr_diag[: p.n], hv, hv[self._h_off], w])))
+        if lowrank:
+            factor = self._attach_smw(factor, hess)
+        return KKTContext(
+            hess=hess, jac=jac, pr_diag=pr_diag, du_diag=du_diag, reg=reg,
+            dl=dl, du_=du_, zl=zl, zu=zu, factor=factor)
+
+    def is_inertia_correct(self, pos, zero, neg) -> bool:
+        return zero == 0 and neg == 0
+
+    def solve(self, ctx: KKTContext, b: KKTVec) -> KKTVec:
+        """Condensed solve (src/IPM/factorization.jl:143-167), the J
+        products as segment sums."""
+        n = self.prob.n
+        w = self.reduce_rhs(ctx, b)
+        wx, ws = w.xp[:n], w.xp[n:]
+        sigma_s = ctx.pr_diag[n:]
+        D = self._diag_buffer(ctx.pr_diag, ctx.du_diag)
+        nnz = self.nnz_jac
+        jv, jr, jc = ctx.jac[:nnz], self.jr[:nnz], self.jc[:nnz]
+        buffer = D * (w.y + ws / sigma_s)
+        xx = wx + segment_sum(jv * buffer[jr], self._mjt_table)
+        dx = self._backsolve(ctx.factor, xx)
+        jdx = segment_sum(jv * dx[jc], self._mjp_table)
+        dz = -buffer + D * jdx
+        w = w._replace(xp=torch.cat([dx, (ws + dz) / sigma_s]), y=dz)
+        return self.finish_aug_solve(ctx, w, b.zl, b.zu)

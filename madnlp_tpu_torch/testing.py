@@ -42,9 +42,9 @@ def test_linear_solver(linear_solver: LinearSolver, dtype=torch.float64,
     """Contract check for a dense factorization backend: factorize/solve a
     fixed 2×2 SPD system and verify the solution and (if supported) the
     inertia — the JAX package's ``test_linear_solver``.  The range-space
-    solvers ``BLOCK_CHOLESKY`` and ``HYKKT`` take a fixed quasidefinite
-    3×3 saddle system instead (they raise NotImplementedError until a
-    later slice of the port brings them)."""
+    solvers ``BLOCK_CHOLESKY`` and ``HYKKT`` factorize the 2×2 saddle
+    structure, so they take a fixed quasidefinite 3×3 system ``[W Aᵀ; A
+    -δ]`` split at 2 instead (HYKKT's K_γ through K7 on the card)."""
     from .ops import dense_solvers as ds
 
     device = resolve_device(device)
@@ -56,7 +56,7 @@ def test_linear_solver(linear_solver: LinearSolver, dtype=torch.float64,
         b = torch.tensor([1.0, 3.0, 0.5], dtype=dtype, device=device)
         x_ref = np.linalg.solve(A.cpu().double().numpy(),
                                 b.cpu().double().numpy())
-        factor = ds.factorize(A, linear_solver)   # split=2 when they come
+        factor = ds.factorize(A, linear_solver, split=2)
         x = ds.solve(factor, b)
         np.testing.assert_allclose(
             x.cpu().numpy(), x_ref, rtol=max(rtol, 1e-6), atol=1e-6

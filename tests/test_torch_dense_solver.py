@@ -348,8 +348,14 @@ def test_dense_entry_points_need_cuda_unless_told():
     dict(kkt_system=T.KKTSystem.SPARSE_UNREDUCED),
 ])
 def test_dense_later_slices_raise(opts):
+    """Slice A4 brought these configurations to the single solve of a
+    dense model (HS15 solves); ``solve_batch`` on them stays a later
+    slice's (A4b) and raises."""
+    solver = T.MadNLPSolver(ths15.build(), device="cpu",
+                            print_level=T.PrintLevel.ERROR, **opts)
+    assert solver.solve().status == T.Status.SOLVE_SUCCEEDED
     with pytest.raises(NotImplementedError, match="later slice"):
-        T.MadNLPSolver(ths15.build(), device="cpu", **opts).solve()
+        solver.solve_batch([1.0, 1.1])
 
 
 def test_dense_solve_batch_raises():

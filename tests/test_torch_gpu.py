@@ -1012,3 +1012,105 @@ def test_banded_harness_round_trip_on_the_card(dtype):
     counts = bk.counts()
     assert counts["banded_factorize_cuda"] == 1
     assert counts["banded_solve_cuda"] == 1
+
+
+# -- slice A4: the range-space solvers and the new KKT systems ----------------
+
+
+@pytest.mark.parametrize("solver", [T.LinearSolver.BLOCK_CHOLESKY,
+                                    T.LinearSolver.HYKKT])
+def test_range_space_harness_on_the_card(solver):
+    """``testing.test_linear_solver`` for BLOCK_CHOLESKY and HYKKT on the
+    card: HYKKT's K_γ through K7 (the card's default backend, one
+    launch), no Cholesky; BLOCK_CHOLESKY launches no kernel of the port."""
+    import madnlp_tpu_torch.testing as mt
+
+    _need_cuda()
+    dk.reset_counts()
+    assert mt.test_linear_solver(solver, device="cuda")
+    want = 1 if solver == T.LinearSolver.HYKKT else 0
+    assert dk.counts()["dense_ldlt_cuda"] == want
+
+
+@pytest.mark.parametrize("kkt,lin,kernels", [
+    ("sparse_unreduced", "banded", "K1K2"),
+    ("sparse_condensed", "banded", "K1K2"),
+    ("sparse_unreduced", "ldl", "K7"),
+    ("dense", "hykkt", "K7"),
+])
+def test_a4_harness_round_trip_on_the_card(kkt, lin, kernels):
+    """``testing.test_kkt_system`` on the A4 systems on the card: the
+    banded ones through K1 and K2 (one launch each), the dense ones
+    through K7 (HYKKT: its K_γ)."""
+    import madnlp_tpu_torch.testing as mt
+    from madnlp_tpu_torch.models.instances import sparse_qp
+
+    _need_cuda()
+    bk.reset_counts()
+    dk.reset_counts()
+    model = sparse_qp.build(n=1000) if lin == "banded" else None
+    assert mt.test_kkt_system(model=model, kkt_system=kkt,
+                              linear_solver=lin, device="cuda")
+    counts = {k: v for k, v in {**bk.counts(), **dk.counts()}.items() if v}
+    want = ({"banded_factorize_cuda": 1, "banded_solve_cuda": 1}
+            if kernels == "K1K2" else {"dense_ldlt_cuda": 1})
+    assert counts == want
+
+
+@pytest.mark.parametrize("opts", [
+    dict(kkt_system="sparse_unreduced", linear_solver="banded"),
+    dict(kkt_system="sparse_condensed", linear_solver="banded", tol=1e-6),
+])
+def test_a4_banded_solve_on_the_card_matches_the_cpu(opts):
+    """The nb=30 sparse ACOPF under the unreduced and the condensed system
+    on K1/K2 against the same solve on the CPU: the status, the objective
+    within 1e-8; the unreduced iterations and factorizations exactly and
+    its backsolves within 2% (the condensed counts move with rounding,
+    ROADMAP §C R3); K1 once per factorization and K2 once per backsolve at
+    least."""
+    _need_cuda()
+    o = dict(print_level=T.PrintLevel.ERROR, **opts)
+    cpu = T.madnlp(opf.build_sparse(nb=30, seed=1), device="cpu", **o)
+    bk.reset_counts()
+    gpu = T.madnlp(opf.build_sparse(nb=30, seed=1), **o)
+    assert gpu.status == cpu.status == T.Status.SOLVE_SUCCEEDED
+    assert abs(gpu.objective - cpu.objective) <= 1e-8 * abs(cpu.objective)
+    if opts["kkt_system"] == "sparse_unreduced":
+        # float64 refinement sweeps at the operator's rounding floor move
+        # by one between devices (ROADMAP §C, C1)
+        assert gpu.iter == cpu.iter
+        assert (gpu.counters["factorization_cnt"]
+                == cpu.counters["factorization_cnt"])
+        assert abs(gpu.counters["backsolve_cnt"]
+                   - cpu.counters["backsolve_cnt"]) <= 0.02 * cpu.counters[
+                       "backsolve_cnt"]
+    c = bk.counts()
+    assert c["banded_factorize_cuda"] >= gpu.counters["factorization_cnt"]
+    assert c["banded_solve_cuda"] >= gpu.counters["backsolve_cnt"]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_hykkt_solve_on_the_card_launches_k7(dtype, monkeypatch):
+    """The dense nb=30 ACOPF under DENSE + HYKKT on the card (the default
+    backend "ldl"): K_γ through K7 once per factorization plus the
+    least-squares start's, never a Cholesky; the counts equal the CPU's
+    solve with ``hykkt_backend="ldl"`` (K7's plain version)."""
+    _need_cuda()
+    o = dict(print_level=T.PrintLevel.ERROR, kkt_system="dense",
+             linear_solver="hykkt", dtype=dtype)
+    cpu = T.madnlp(opf.build(nb=30, seed=1), device="cpu",
+                   hykkt_backend="ldl", **o)
+
+    def no_cholesky(*args, **kwargs):
+        raise AssertionError("a Cholesky ran under hykkt_backend='ldl'")
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", no_cholesky)
+    dk.reset_counts()
+    gpu = T.madnlp(opf.build(nb=30, seed=1), **o)
+    assert gpu.status == cpu.status == T.Status.SOLVE_SUCCEEDED
+    assert abs(gpu.objective - cpu.objective) <= 1e-8 * abs(cpu.objective)
+    assert dk.counts()["dense_ldlt_cuda"] == (
+        gpu.counters["factorization_cnt"] + 1)
+    if dtype == "float64":
+        assert gpu.iter == cpu.iter
+        assert (gpu.counters["factorization_cnt"]
+                == cpu.counters["factorization_cnt"])

@@ -4,16 +4,19 @@ has, and its behavior suite must pass (its checks are the JAX package's,
 with the same reference solutions; no JAX solve runs here).
 
 * ``test_linear_solver`` for LDL (K7's plain version here), CHOLESKY, LU,
-  QR and EVD; BLOCK_CHOLESKY and HYKKT (slice A4) raise "comes in a later
-  slice of the port".
+  QR, EVD, BLOCK_CHOLESKY and HYKKT (slice A4: the quasidefinite 3×3
+  system split at 2; until A4 these two cases, and the A4 systems of
+  ``test_kkt_contract``, were tests that asserted the raise).
 * ``test_kkt_system`` — the round trip ``K·solve(1) ≈ 1`` through the
   unreduced operator and the inertia under unit regularization — on
   DENSE (LDL, EVD), DENSE_CONDENSED (Cholesky, LDL), SPARSE on dense
   storage (a dense model; a sparse model under LDL), SPARSE banded
   (K1/K2's plain versions; float32 held to 1e-5, a float32 factor without
   refinement), SCALED_SPARSE (K2.5) and a custom model
-  (``dummy_qp.build(16, 4)``); SPARSE_UNREDUCED and SPARSE_CONDENSED
-  (A4) raise.
+  (``dummy_qp.build(16, 4)``); since slice A4 also SPARSE_UNREDUCED (LDL
+  storage of a dense model, and banded and LDL storage of a sparse one),
+  SPARSE_CONDENSED (its Cholesky preset, and banded), DENSE under
+  BLOCK_CHOLESKY and HYKKT, and SPARSE on dense storage under HYKKT.
 * ``run_behavior_suite(device="cpu", exclude=("eigmina",))`` returns the
   JAX test's set of names (tests/test_testing_harness.py).
 * ``MadNLPSolver.solve_jitted`` equals a cold ``solve()`` bit for bit.
@@ -33,16 +36,10 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("solver", [
     LinearSolver.LDL, LinearSolver.CHOLESKY, LinearSolver.LU,
-    LinearSolver.QR, LinearSolver.EVD])
+    LinearSolver.QR, LinearSolver.EVD, LinearSolver.BLOCK_CHOLESKY,
+    LinearSolver.HYKKT])
 def test_linear_solver_contract(solver):
     assert mt.test_linear_solver(solver, device="cpu")
-
-
-@pytest.mark.parametrize("solver", [LinearSolver.BLOCK_CHOLESKY,
-                                    LinearSolver.HYKKT])
-def test_range_space_solvers_come_later(solver):
-    with pytest.raises(NotImplementedError, match="later slice of the port"):
-        mt.test_linear_solver(solver, device="cpu")
 
 
 KKT_CASES = {
@@ -58,6 +55,23 @@ KKT_CASES = {
                           {"dtype": "float32", "rtol": 1e-5}),
     "scaled_sparse": ("qp", KKTSystem.SCALED_SPARSE, LinearSolver.BANDED, {}),
     "custom_model": ("dummy16", None, None, {}),
+    # slice A4
+    "unreduced_dense_model": (None, KKTSystem.SPARSE_UNREDUCED,
+                              LinearSolver.LDL, {}),
+    "unreduced_banded": ("qp", KKTSystem.SPARSE_UNREDUCED,
+                         LinearSolver.BANDED, {}),
+    "unreduced_dense_storage": ("qp", KKTSystem.SPARSE_UNREDUCED,
+                                LinearSolver.LDL, {}),
+    "condensed_sparse_preset": ("qp", KKTSystem.SPARSE_CONDENSED, None, {}),
+    "condensed_banded": ("qp", KKTSystem.SPARSE_CONDENSED,
+                         LinearSolver.BANDED, {}),
+    "dense_block_cholesky": (None, KKTSystem.DENSE,
+                             LinearSolver.BLOCK_CHOLESKY, {}),
+    "dense_hykkt": (None, KKTSystem.DENSE, LinearSolver.HYKKT, {}),
+    "dense_hykkt_ldl": (None, KKTSystem.DENSE, LinearSolver.HYKKT,
+                        {"hykkt_backend": "ldl"}),
+    "sparse_dense_storage_hykkt": ("qp", KKTSystem.SPARSE, LinearSolver.HYKKT,
+                                   {}),
 }
 
 
@@ -79,14 +93,6 @@ def test_kkt_contract(case):
         assert solver.kernel.kkt.banded
     assert mt.test_kkt_system(model=_model(model), kkt_system=kkt,
                               linear_solver=lin, device="cpu", **opts)
-
-
-@pytest.mark.parametrize("kkt", [KKTSystem.SPARSE_UNREDUCED,
-                                 KKTSystem.SPARSE_CONDENSED])
-def test_kkt_systems_of_a_later_slice_raise(kkt):
-    with pytest.raises(NotImplementedError, match="later slice of the port"):
-        mt.test_kkt_system(kkt_system=kkt, linear_solver=LinearSolver.LDL,
-                           device="cpu")
 
 
 def test_behavior_suite_default():

@@ -187,21 +187,22 @@ def test_entry_points_need_cuda_unless_told():
     dict(inertia_correction_method=T.InertiaCorrection.FREE),
 ])
 def test_later_slices_raise(opts):
-    """The KKT systems and solvers of later slices raise in the single
-    solve; the step options run in the single solve (slice A2) and in
-    ``solve_batch`` (slice A2b), where only ``sharding=`` still raises."""
-    a2 = not ("linear_solver" in opts or "kkt_system" in opts)
+    """The step options run in the single solve (slice A2) and in
+    ``solve_batch`` (slice A2b), where only ``sharding=`` still raises;
+    the KKT systems and solvers of slice A4 run in the single solve, and
+    ``solve_batch`` on them (slice A4b) raises at its entry."""
+    a4 = "linear_solver" in opts or "kkt_system" in opts
     opts = {"linear_solver": T.LinearSolver.BANDED, **opts}
+    if a4 and opts.get("kkt_system") == T.KKTSystem.SPARSE_CONDENSED:
+        opts["tol"] = 1e-6
     solver = T.MadNLPSolver(ths15.build_sparse(), device="cpu",
-                            print_level=T.PrintLevel.ERROR, **opts) \
-        if a2 else None
+                            print_level=T.PrintLevel.ERROR, **opts)
     with pytest.raises(NotImplementedError, match="later slice"):
-        if a2:
-            solver.solve_batch([1.0, 1.1], sharding=object())
+        if a4:
+            solver.solve_batch([1.0, 1.1])
         else:
-            T.MadNLPSolver(ths15.build_sparse(), device="cpu", **opts).solve()
-    if a2:
-        assert solver.solve().status == T.Status.SOLVE_SUCCEEDED
+            solver.solve_batch([1.0, 1.1], sharding=object())
+    assert solver.solve().status == T.Status.SOLVE_SUCCEEDED
     with pytest.raises(NotImplementedError, match="later slice"):
         T.MadNLPSolver(ths15.build_sparse(), device="cpu").solve_batch([])
 

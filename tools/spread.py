@@ -37,6 +37,14 @@ its fixed options, and what a seed moves.
   (the same noise in both packages).
 * ``rosenbrock`` — compact L-BFGS on the 10-variable Rosenbrock function
   from x0 = -1.2 (tests/test_quasi_newton.py); the seed moves x0.
+* ``condensed`` — ``opf.build_sparse(nb=NB, seed=0)`` (NB 14 by
+  default) under ``kkt_system=SPARSE_CONDENSED``, ``linear_solver=
+  BANDED`` and ``tol=1e-6``; ``unreduced`` the same model under
+  ``SPARSE_UNREDUCED`` + ``BANDED``; ``range_space`` the dense
+  ``opf.build(nb=NB, seed=0)`` under ``DENSE`` + ``HYKKT`` with
+  ``hykkt_backend="ldl"`` (``--option bchol``: ``BLOCK_CHOLESKY``); the
+  seed moves x0 (chip_smoke.py's ``sparse_condensed``,
+  ``sparse_unreduced`` and ``range_space`` phases).
 * ``minsurf`` — the COPS minimal surface ``minsurf_nl(NB)`` (NB 100 by
   default: n = 10,201) read from its ``.nl`` file by each package's
   template compiler, default options (the banded KKT); the seed moves
@@ -129,6 +137,7 @@ STEP_OPTIONS = {
     "dlbfgs": {"hessian_approximation": "HessianApproximation.COMPACT_LBFGS"},
     "gmres": {"iterator": "gmres"},
     "lu": {"linear_solver": "LinearSolver.LU"},
+    "bchol": {"linear_solver": "LinearSolver.BLOCK_CHOLESKY"},
 }
 DENSE = ("dbfgs", "dlbfgs", "gmres", "lu")
 
@@ -344,6 +353,39 @@ def _minsurf(P, a):
     return nl.read_nl(path, sparse=True), opts
 
 
+def _a4_options(P, a, **extra):
+    """Default options of package ``P`` with the A4 case's ``extra``
+    (enum members by name, as in ``STEP_OPTIONS``)."""
+    opts = _options(P, "default", a, banded=False)
+    for k, v in extra.items():
+        if isinstance(v, str) and "." in v:
+            enum, member = v.split(".")
+            v = getattr(getattr(P.pkg, enum), member)
+        opts[k] = v
+    return opts
+
+
+def _condensed(P, a):
+    return P.opf.build_sparse(nb=a.nb or 14, seed=0), _a4_options(
+        P, a, kkt_system="KKTSystem.SPARSE_CONDENSED",
+        linear_solver="LinearSolver.BANDED", tol=1e-6)
+
+
+def _unreduced(P, a):
+    return P.opf.build_sparse(nb=a.nb or 14, seed=0), _a4_options(
+        P, a, kkt_system="KKTSystem.SPARSE_UNREDUCED",
+        linear_solver="LinearSolver.BANDED")
+
+
+def _range_space(P, a):
+    extra = {"kkt_system": "KKTSystem.DENSE"}
+    if a.option == "bchol":
+        extra["linear_solver"] = "LinearSolver.BLOCK_CHOLESKY"
+    else:
+        extra.update(linear_solver="LinearSolver.HYKKT", hykkt_backend="ldl")
+    return P.opf.build(nb=a.nb or 14, seed=0), _a4_options(P, a, **extra)
+
+
 def _move_x0(P, model, seed):
     model.x0 = ulp(model.x0, seed)
     return model, None
@@ -364,6 +406,9 @@ CASES = {
     "qr": (_qr, lambda P, model, seed: (model, _matrix_noise(P, seed, EPS))),
     "rosenbrock": (_rosenbrock_case, _move_rosenbrock_x0),
     "minsurf": (_minsurf, _move_x0),
+    "condensed": (_condensed, _move_x0),
+    "unreduced": (_unreduced, _move_x0),
+    "range_space": (_range_space, _move_x0),
 }
 
 
